@@ -1,26 +1,39 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``repro_torch``) on one card.
 
-Drives the port's serving main path at the full width of smollm-135m:
+Drives the port's two serving paths: smollm-135m at full width, restored
+N-to-M, and recurrentgemma-9b at full width and full depth.
 
   device   the card's name and power limit (nvidia-smi);
   build    the hand-written kernels, compiled from this checkout's sources;
   kernels  each kernel against its plain PyTorch version on the card, at the
-           main path's shapes, with its time, bound, plain and library times;
-  ckpt     a seeded full-width state on the card, saved as N=4 ranks through
-           the N-to-M engine (ckpt_pack packs each rank's chunks), restored
-           N-to-M onto this one card, checked bit for bit;
+           main paths' shapes, with its time, bound, plain and library times;
+  ckpt     a seeded full-width smollm-135m state on the card, saved as N=4
+           ranks through the N-to-M engine (ckpt_pack packs each rank's
+           chunks), restored N-to-M onto this one card, checked bit for bit;
   serve    continuous batching from the restored parameters (prefill through
            the flash-attention kernel), token for token against sequential
-           greedy decoding.
+           greedy decoding;
+  hybrid_serve        recurrentgemma-9b (seeded weights on the card) through
+           the launcher's ``serve_batch``: one batched prefill (every RG-LRU
+           layer through the rglru_scan kernel), lockstep greedy decode;
+  hybrid_state        that prefill's serving state (recurrent and conv
+           states, ring-buffer K/V, length) saved as N=4 ranks and restored
+           4-to-1 onto the card bit for bit; decoding from the restored state
+           gives the same tokens;
+  hybrid_consistency  decode-step logits against one prefill of the prompt
+           plus the tokens generated so far.
 
-Every phase prints one JSON line; a failing phase raises and the script
-exits non-zero.  Before the last line come the {"kernels": [...]} line and
-the card's name and power limit; the last line is
-{"ok": true, "device": {...}}.  Needs one CUDA card and the repository
-around it; imports nothing of JAX.
+Each path runs with the launch counts set to 0 just before it and read just
+after; a kernel of a path that never launched fails the run.  Every phase
+prints one JSON line; a failing phase raises and the script exits non-zero.
+Before the last line come the {"kernels": [...]} line (``launches`` summed
+over the paths that run the kernel) and the card's name and power limit;
+the last line is {"ok": true, "device": {...}}.  Needs one CUDA card (80 GB:
+the 9.4 B-parameter model is 18.8 GB in bf16) and the repository around it;
+imports nothing of JAX.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 """
 
 from __future__ import annotations
@@ -48,6 +61,11 @@ BF16_FLOPS = 989e12
 # in f32) and the output is rounded to bf16 (1 ulp = 2^-8 relative) — the
 # repo's own Pallas-vs-oracle bf16 tolerance
 ATTN_ATOL = ATTN_RTOL = 2e-2
+# |kernel - plain| <= SCAN_ATOL + SCAN_RTOL * |plain| for the RG-LRU scan:
+# tests/test_kernels.py's f32 tolerance of the Pallas kernel against its
+# oracle (the kernel runs the sequential FMA chain, the plain version a
+# doubling scan: the same sums in another order)
+SCAN_ATOL = SCAN_RTOL = 1e-5
 
 SEED = 0
 NRANKS = 4
@@ -55,6 +73,16 @@ SLOTS = 4
 # (prompt length, max_new) of the served requests
 REQUESTS = [(16, 8), (512, 32), (77, 16), (200, 24), (33, 12), (384, 32),
             (128, 20), (250, 8)]
+# the hybrid path: batch, prompt length and lockstep decode steps; the
+# decode steps whose logits are held against a longer prefill
+HYBRID_B, HYBRID_P, HYBRID_G = 4, 512, 32
+CONSISTENCY_STEPS = (1, 16, 32)
+# |decode logits - prefill logits| <= CONSISTENCY_RTOL * max |prefill
+# logits|: the two paths round bf16 activations at different places over 38
+# layers (the products run at other shapes, attention is decode_attention
+# against flash_attention_xla).  Measured on an H100 at 0.020-0.031 of the
+# largest logit for these inputs; the bound leaves 1.6x of that
+CONSISTENCY_RTOL = 0.05
 
 
 def emit(obj) -> None:
@@ -238,45 +266,130 @@ def check_flash_attention(cfg) -> dict:
             "cases": results}
 
 
+def check_rglru_scan(W: int) -> dict:
+    from repro_torch.kernels.rglru_scan.ops import lru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def uni(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    def model_gates(B, S, W):
+        # the model's own range: a = exp(-8 softplus(lam) r), b scaled by
+        # sqrt(1 - a^2) (models/rglru.py::_lru_gates)
+        lam = rnd(W)
+        a = torch.exp(-8.0 * torch.logaddexp(lam, torch.zeros_like(lam))
+                      * uni(B, S, W))
+        return a, torch.sqrt(1.0 - a * a) * rnd(B, S, W)
+
+    def test_gates(B, S, W):
+        # tests/test_kernels.py's range, where error accumulates most
+        return 0.8 + 0.199 * uni(B, S, W), rnd(B, S, W)
+
+    cases = [
+        # B, S, W, h0, gates
+        (HYBRID_B, HYBRID_P, W, True, model_gates),   # the path's prefill
+        (1, 2048, W, True, model_gates),
+        (1, 1000, W, False, model_gates),             # ragged S, h0 = None
+        (2, 300, 1000, True, model_gates),            # ragged W
+        (HYBRID_B, HYBRID_P, W, True, test_gates),
+        (1, 2048, W, True, test_gates),
+    ]
+    worst, results = 0.0, []
+    for B, S, Wc, with_h0, gates in cases:
+        a, b = gates(B, S, Wc)
+        h0 = rnd(B, Wc) if with_h0 else None
+        h, h_last = lru_scan(a, b, h0)
+        want, want_last = rglru_scan_ref(a, b, h0)
+        torch.cuda.synchronize()
+        bad = sum(int(((got - ref).abs()
+                       > SCAN_ATOL + SCAN_RTOL * ref.abs()).sum())
+                  for got, ref in ((h, want), (h_last, want_last)))
+        err = float((h - want).abs().max())
+        worst = max(worst, err)
+        results.append({"shape": [B, S, Wc], "h0": with_h0,
+                        "gates": gates.__name__, "max_abs_err": err,
+                        "max_abs_h": float(want.abs().max()),
+                        "outside_tol": bad})
+        if bad or not torch.isfinite(h).all():
+            raise AssertionError(f"rglru_scan outside tolerance: "
+                                 f"{results[-1]}")
+    # timing at the hybrid path's prefill shape
+    B, S = HYBRID_B, HYBRID_P
+    a, b = model_gates(B, S, W)
+    h0 = rnd(B, W)
+    ms = time_ms(lambda: lru_scan(a, b, h0))
+    plain_ms = time_ms(lambda: rglru_scan_ref(a, b, h0), iters=5)
+    # read a, b and h0; write h and h_last
+    nbytes = 4 * (3 * B * S * W + 2 * B * W)
+    return {"name": "rglru_scan", "route": "cuda",
+            "source": "repro_torch/kernels/rglru_scan/kernel.cu",
+            "replaces": "src/repro/kernels/rglru_scan/kernel.py:51",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a first-order "
+                            "linear recurrence",
+            "timed_at": {"shape": [B, S, W], "h0": True,
+                         "bytes_moved": nbytes},
+            "tolerance": {"atol": SCAN_ATOL, "rtol": SCAN_RTOL},
+            "cases": results}
+
+
 # -------------------------------------------------------------- main path
-def phase_ckpt(api, params, store_dir: str, nranks: int, device):
-    """Save ``params`` as ``nranks`` ranks, restore onto one device."""
+def save_restore(state, target, store_dir: str, nranks: int, device):
+    """Save the tensors ``state`` as ``nranks`` ranks through the N-to-M
+    engine and restore them onto ``device`` into ``target``'s names, shapes
+    and dtypes (meta tensors); checked bit for bit and by ``verify_step``.
+    Returns the measurements and the restored tensors."""
     from repro_torch.core.comm import Comm
     from repro_torch.core.store import DatasetStore
     from repro_torch.core.tensor_ckpt import (TensorCheckpoint,
                                               balanced_chunk_partition)
     from repro_torch.core.torch_io import layout_from_torch, load_torch, save_torch
 
-    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
     ck = TensorCheckpoint(DatasetStore(store_dir, "w"))
-    layout = layout_from_torch(params)
+    layout = layout_from_torch(state)
     ck.save_layout(layout)
     ownership = balanced_chunk_partition(layout, nranks)
     _sync(device)
     t0 = time.perf_counter()
-    save_torch(ck, params, step=0, ownership=ownership)
+    save_torch(ck, state, step=0, ownership=ownership)
     t_save = time.perf_counter() - t0
 
     ck_r = TensorCheckpoint(DatasetStore(store_dir, "r"))
     t0 = time.perf_counter()
-    restored = load_torch(ck_r, api.abstract_params(), step=0, device=device)
+    restored = load_torch(ck_r, target, step=0, device=device)
     _sync(device)
     t_load = time.perf_counter() - t0
-    mismatched = [n for n in params
-                  if not torch.equal(restored[n].reshape(-1).view(torch.uint8),
-                                     params[n].reshape(-1).view(torch.uint8))]
+    mismatched = [n for n in state
+                  if restored[n].dtype != state[n].dtype
+                  or not torch.equal(restored[n].reshape(-1).view(torch.uint8),
+                                     state[n].reshape(-1).view(torch.uint8))]
     if mismatched:
         raise AssertionError(f"restore is not bit-exact for {mismatched}")
     if not ck_r.verify_step(Comm(1), 0):
         raise AssertionError("verify_step failed on the saved store")
     gib = nbytes / 2**30
-    return {"phase": "ckpt", "params": sum(t.numel() for t in params.values()),
-            "bytes": nbytes, "save_ranks": nranks, "load_ranks": 1,
+    return {"bytes": nbytes, "save_ranks": nranks, "load_ranks": 1,
             "save_seconds": t_save, "load_seconds": t_load,
             "save_gib_per_s": gib / t_save, "load_gib_per_s": gib / t_load,
             "bit_exact": True, "verify_step": True,
             "ownership_chunks": [int(sum(len(o) for o in r.values()))
                                  for r in ownership]}, restored
+
+
+def phase_ckpt(api, params, store_dir: str, nranks: int, device):
+    """Save ``params`` as ``nranks`` ranks, restore onto one device."""
+    line, restored = save_restore(params, api.abstract_params(), store_dir,
+                                  nranks, device)
+    return {"phase": "ckpt", "params": sum(t.numel() for t in params.values()),
+            **line}, restored
 
 
 def _sync(device) -> None:
@@ -391,6 +504,100 @@ def check_model_logits(api, params) -> dict:
             "same_argmax": bool((got.argmax(-1) == want.argmax(-1)).all())}
 
 
+# -------------------------------------------------------------- hybrid path
+def phase_hybrid_serve(api, params, tokens, device) -> tuple[dict, dict]:
+    """One batched prefill and HYBRID_G lockstep decode steps through the
+    launcher's ``serve_batch``.  Returns the phase line and what the later
+    phases need: the generated tokens, a clone of the prefill's cache and
+    row 0's logits at the CONSISTENCY_STEPS."""
+    from repro_torch.launch.serve import serve_batch
+
+    kept = {"step_logits": {}}
+
+    def on_prefill(logits, cache):
+        kept["cache"] = {k: v.clone() for k, v in cache.items()}
+
+    def on_step(i, logits):
+        if i in CONSISTENCY_STEPS:
+            kept["step_logits"][i] = logits[0].float().clone()
+
+    B, P = tokens.shape
+    torch.cuda.reset_peak_memory_stats()
+    out, timings = serve_batch(api, params, tokens, HYBRID_G, device,
+                               on_prefill=on_prefill, on_step=on_step)
+    if out.shape != (B, HYBRID_G + 1) or not (
+            (out >= 0) & (out < api.cfg.vocab)).all():
+        raise AssertionError(f"served tokens {out.shape} out of range")
+    if not all(torch.isfinite(t).all() for t in kept["step_logits"].values()):
+        raise AssertionError("decode logits are not finite")
+    kept["tokens"] = out
+    t_pre, t_dec = timings["prefill_seconds"], timings["decode_seconds"]
+    line = {"phase": "hybrid_serve", "arch": api.cfg.arch,
+            "params": sum(t.numel() for t in params.values()),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in params.values()),
+            "layers": api.cfg.num_layers, "batch": B, "prompt_len": P,
+            "decode_steps": HYBRID_G, "prefill_seconds": t_pre,
+            "prefill_tokens_per_s": B * P / t_pre,
+            "decode_seconds": t_dec,
+            "decode_tokens_per_s": B * HYBRID_G / t_dec,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "sample_tokens": out[0, :8].tolist()}
+    return line, kept
+
+
+def phase_hybrid_state(api, params, kept, store_dir: str, nranks: int,
+                       device) -> dict:
+    """The prefill's cache saved as ``nranks`` ranks, restored onto this
+    card, checked bit for bit; decoding from it must give the same tokens."""
+    from repro_torch.launch.serve import decode_steps
+
+    cache, out = kept["cache"], kept["tokens"]
+    line, restored = save_restore(
+        cache, api.abstract_cache(out.shape[0], HYBRID_P + HYBRID_G),
+        store_dir, nranks, device)
+    first = torch.from_numpy(out[:, :1].copy()).to(device)
+    with torch.inference_mode():
+        toks = decode_steps(api, params, restored, first, HYBRID_P, HYBRID_G,
+                            device)
+    if not np.array_equal(torch.cat(toks, dim=1).cpu().numpy(), out):
+        raise AssertionError("decoding from the restored state gave other "
+                             "tokens than the original state")
+    return {"phase": "hybrid_state",
+            "arrays": {k: [list(v.shape), str(v.dtype).removeprefix("torch.")]
+                       for k, v in cache.items()},
+            **line, "continued_tokens_identical": True}
+
+
+def phase_hybrid_consistency(api, params, tokens, kept) -> dict:
+    """Row 0: the logits of decode step g against one prefill of the prompt
+    plus the first g generated tokens."""
+    out = kept["tokens"]
+    dev = params["embed"].device
+    results = []
+    for g in CONSISTENCY_STEPS:
+        seq = torch.cat([tokens[0], torch.from_numpy(out[0, :g]).to(dev)])
+        with torch.inference_mode():
+            want, _ = api.prefill(params, {"tokens": seq[None]})
+        want = want[0].float()
+        got = kept["step_logits"][g]
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        top2 = torch.topk(want, 2).values
+        results.append({"step": g, "max_abs_diff": diff,
+                        "max_abs_logit": scale, "rel": diff / scale,
+                        "same_argmax": int(got.argmax()) == int(want.argmax()),
+                        "prefill_top2_gap": float(top2[0] - top2[1])})
+    line = {"phase": "hybrid_consistency", "rtol": CONSISTENCY_RTOL,
+            "cases": results}
+    emit(line)
+    bad = [r for r in results
+           if not r["same_argmax"] or r["rel"] > CONSISTENCY_RTOL]
+    if bad:
+        raise AssertionError(f"decode disagrees with prefill: {bad}")
+    return line
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not (ROOT / "repro_torch" / "__init__.py").exists():
@@ -403,11 +610,13 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.tensor_ckpt import balanced_chunk_partition
     from repro_torch.core.torch_io import layout_from_torch
     from repro_torch.kernels.ckpt_pack import ops as pack_ops
     from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.models.api import build_model
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.models.api import build_model, make_token_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -417,10 +626,15 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(get_config("smollm_135m"),
                               attention_impl="pallas")
     api = build_model(cfg)
+    # as the launcher does; the RG-LRU family ignores attention_impl
+    hcfg = dataclasses.replace(get_config("recurrentgemma_9b"),
+                               attention_impl="pallas")
+    hapi = build_model(hcfg)
     device = torch.device("cuda")
     scratch = ROOT / "build" / "chip_smoke"
     scratch.mkdir(parents=True, exist_ok=True)
     store_dir = tempfile.mkdtemp(prefix="store_", dir=scratch)
+    hybrid_store = tempfile.mkdtemp(prefix="store_", dir=scratch)
     try:
         with torch.inference_mode():
             params = api.init(torch.Generator(device=device).manual_seed(SEED))
@@ -428,29 +642,62 @@ def main(argv=None) -> int:
             ownership = balanced_chunk_partition(layout, NRANKS)
             # ---- each kernel against its plain version, with its times
             kernels = [check_ckpt_pack(params, layout, ownership),
-                       check_flash_attention(cfg)]
+                       check_flash_attention(cfg),
+                       check_rglru_scan(hcfg.lru_width)]
             for entry in kernels:
                 emit({"phase": "kernels", **entry})
             if "--kernels-only" in argv:
                 return 0
-            # ---- the main path: counts at 0 just before, read just after
-            pack_ops.launches = attn_ops.launches = 0
+            # ---- the smollm path: counts at 0 just before, read just after
+            pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
             ckpt, restored = phase_ckpt(api, params, store_dir, NRANKS, device)
             requests = make_requests(cfg.vocab)
             serve, results = phase_serve(api, restored, requests, SLOTS, device)
-            launches = {"ckpt_pack": pack_ops.launches,
-                        "flash_attention": attn_ops.launches}
-            ckpt["ckpt_pack_launches"] = launches["ckpt_pack"]
+            dense = {"ckpt_pack": pack_ops.launches,
+                     "flash_attention": attn_ops.launches}
+            ckpt["ckpt_pack_launches"] = dense["ckpt_pack"]
             emit(ckpt)
-            serve["flash_attention_launches"] = launches["flash_attention"]
+            serve["flash_attention_launches"] = dense["flash_attention"]
             serve.update(check_served(api, restored, requests, results, SLOTS))
             serve.update(check_model_logits(api, restored))
             emit(serve)
-            if not all(launches.values()):
-                raise AssertionError(f"a kernel of the main path never "
-                                     f"launched: {launches}")
+            if not all(dense.values()):
+                raise AssertionError(f"a kernel of the smollm path never "
+                                     f"launched: {dense}")
+            del params, restored, layout, ownership
+            torch.cuda.empty_cache()
+
+            # ---- the hybrid path: counts at 0 just before, read just after
+            hparams = hapi.init(
+                torch.Generator(device=device).manual_seed(SEED))
+            tokens = torch.from_numpy(make_token_batch(
+                hcfg, ShapeConfig("serve", HYBRID_P, HYBRID_B, "prefill"),
+                seed=SEED)["tokens"]).to(device)
+            pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+            hserve, kept = phase_hybrid_serve(hapi, hparams, tokens, device)
+            # one launch per RG-LRU layer of the one prefill
+            n_lru = sum(k == "lru" for k in hcfg.layer_kinds())
+            hserve["rglru_scan_launches"] = scan_ops.launches
+            emit(hserve)
+            if scan_ops.launches != n_lru:
+                raise AssertionError(f"rglru_scan launched {scan_ops.launches}"
+                                     f" times in one prefill, not {n_lru}")
+            hstate = phase_hybrid_state(hapi, hparams, kept, hybrid_store,
+                                        NRANKS, device)
+            hybrid = {"rglru_scan": scan_ops.launches,
+                      "ckpt_pack": pack_ops.launches}
+            hstate["ckpt_pack_launches"] = hybrid["ckpt_pack"]
+            emit(hstate)
+            if not all(hybrid.values()):
+                raise AssertionError(f"a kernel of the hybrid path never "
+                                     f"launched: {hybrid}")
+            phase_hybrid_consistency(hapi, hparams, tokens, kept)
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+        shutil.rmtree(hybrid_store, ignore_errors=True)
+    launches = {"ckpt_pack": dense["ckpt_pack"] + hybrid["ckpt_pack"],
+                "flash_attention": dense["flash_attention"],
+                "rglru_scan": hybrid["rglru_scan"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: e[k] for k in keys}

@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import importlib
 
-#: the architectures this package has ported so far (the dense serving slice)
+#: the architectures this package has ported so far (the serving slices)
 ARCHS = [
     "smollm_135m",
+    "recurrentgemma_9b",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

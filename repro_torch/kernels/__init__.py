@@ -5,8 +5,9 @@ tensors, kernel for CUDA tensors, and a launch count).
 
   * ``ckpt_pack``       — the chunk-level star-forest gather that packs a
     rank's owned chunks before its device-to-host copy;
-  * ``flash_attention`` — the causal GQA attention forward of prefill.
+  * ``flash_attention`` — the causal GQA attention forward of prefill;
+  * ``rglru_scan``      — the RG-LRU linear recurrence of the recurrent
+    layers' prefill.
 
-``build`` compiles the sources with ``nvcc`` on first use.  The JAX
-package's third kernel, ``rglru_scan``, is not ported yet.
+``build`` compiles the sources with ``nvcc`` on first use.
 """

@@ -29,6 +29,7 @@ BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 SOURCES = {
     "ckpt_pack": _PKG / "ckpt_pack" / "kernel.cu",
     "flash_attention": _PKG / "flash_attention" / "kernel.cu",
+    "rglru_scan": _PKG / "rglru_scan" / "kernel.cu",
 }
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,73 @@
+"""Dispatching wrapper of the RG-LRU scan.
+
+A CPU tensor takes the plain version (``ref.py``).  A CUDA tensor launches
+the hand-written kernel (``kernel.cu``) or raises; there is no fallback.
+``launches`` counts the kernel's launches (callers may reset it to 0).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+#: launches of the CUDA kernel since the count was last reset
+launches = 0
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.library("rglru_scan").rglru_scan_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + b_t over time.
+
+    a, b [B, S, W] f32; h0 [B, W] f32 or None (zeros).  Returns
+    (h [B, S, W] f32, h_last [B, W] f32).
+    """
+    if a.dim() != 3 or a.shape != b.shape or a.shape[1] == 0:
+        raise ValueError(f"rglru_scan: a and b must be one [B, S, W] shape "
+                         f"with S > 0, got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    B, S, W = a.shape
+    if h0 is not None and tuple(h0.shape) != (B, W):
+        raise ValueError(f"rglru_scan: h0 must be {(B, W)}, got "
+                         f"{tuple(h0.shape)}")
+    ins = [a, b] + ([] if h0 is None else [h0])
+    if any(t.device != a.device for t in ins):
+        raise ValueError("rglru_scan: a, b and h0 must share one device")
+    if a.device.type == "cpu":
+        return rglru_scan_ref(a, b, h0)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan: no kernel for device {a.device}")
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in ins):
+        raise ValueError("rglru_scan: the kernel takes contiguous float32 "
+                         "a, b and h0")
+    if B > 65535:
+        raise ValueError(f"rglru_scan: the kernel takes B <= 65535, got {B}")
+    h = torch.empty_like(a)
+    h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
+    if h.numel() == 0:
+        return h, h_last
+    with torch.cuda.device(a.device):
+        err = _kernel()(a.data_ptr(), b.data_ptr(),
+                        None if h0 is None else h0.data_ptr(),
+                        h.data_ptr(), h_last.data_ptr(), B, S, W,
+                        torch.cuda.current_stream().cuda_stream)
+    global launches
+    launches += 1
+    build.check(err, "rglru_scan")
+    return h, h_last

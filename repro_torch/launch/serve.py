@@ -7,6 +7,7 @@ through the plain PyTorch versions.  The port has no meshes yet: the mesh
 flags are accepted and must stay at one device.
 
     python -m repro_torch.launch.serve --arch smollm_135m
+    python -m repro_torch.launch.serve --arch recurrentgemma_9b
 """
 
 from __future__ import annotations
@@ -30,6 +31,56 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def decode_steps(api, params, cache, token, pos: int, steps: int,
+                 device: torch.device, on_step=None) -> list[torch.Tensor]:
+    """``steps`` greedy decode steps in lockstep from ``cache``, feeding
+    ``token`` [B, 1] at position ``pos`` first.  Returns the tokens fed and
+    produced ([B, 1] int32 each, ``steps + 1`` of them).  ``on_step(i,
+    logits)``, if given, sees each step's logits (i = 1..steps)."""
+    B = token.shape[0]
+    toks = [token]
+    for i in range(steps):
+        step_batch = {"token": toks[-1],
+                      "pos": torch.full((B,), pos + i, dtype=torch.int32,
+                                        device=device)}
+        logits, cache = api.decode_step(params, cache, step_batch)
+        if on_step is not None:
+            on_step(i + 1, logits)
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32)[:, None])
+    return toks
+
+
+def serve_batch(api, params, tokens: torch.Tensor, gen_len: int,
+                device: torch.device, *, on_prefill=None, on_step=None
+                ) -> tuple[np.ndarray, dict]:
+    """One batched prefill of ``tokens`` [B, P], then ``gen_len`` greedy
+    decode steps in lockstep.
+
+    Returns (tokens [B, gen_len + 1] int32: the prefill's greedy token and
+    each step's, {"prefill_seconds", "decode_seconds"}), each time taken on
+    the host clock around work that ends in a device synchronise.
+    ``on_prefill(logits, cache)`` sees the prefill's output before any
+    decode step writes into the cache; ``on_step`` is ``decode_steps``'s."""
+    B, P = tokens.shape
+    with torch.inference_mode():
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, {"tokens": tokens}, P + gen_len)
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+        if on_prefill is not None:
+            on_prefill(logits, cache)
+
+        t1 = time.perf_counter()
+        toks = decode_steps(api, params, cache,
+                            torch.argmax(logits, dim=-1).to(torch.int32)[:, None],
+                            P, gen_len, device, on_step)
+        _sync(device)
+        t_decode = time.perf_counter() - t1
+    out = np.concatenate([t.cpu().numpy() for t in toks], axis=1)
+    return out, {"prefill_seconds": t_prefill, "decode_seconds": t_decode}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -48,35 +99,19 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     # prefill attention through the hand-written kernel (its plain
-    # version on the CPU)
+    # version on the CPU); the RG-LRU family ignores the setting, as in the
+    # reference
     cfg = dataclasses.replace(cfg, attention_impl="pallas")
     api = build_model(cfg)
     B, P, G = args.batch, args.prompt_len, args.gen_len
     shape = ShapeConfig("serve", P, B, "prefill")
-    cache_len = P + G
 
     batch = make_token_batch(cfg, shape, seed=0)
     params = api.init(torch.Generator(device=device).manual_seed(0))
     tokens = torch.from_numpy(batch["tokens"]).to(device)
-    with torch.inference_mode():
-        _sync(device)
-        t0 = time.perf_counter()
-        logits, cache = api.prefill(params, {"tokens": tokens}, cache_len)
-        _sync(device)
-        t_prefill = time.perf_counter() - t0
+    out, timings = serve_batch(api, params, tokens, G, device)
+    t_prefill, t_decode = timings["prefill_seconds"], timings["decode_seconds"]
 
-        toks = [torch.argmax(logits, dim=-1).to(torch.int32)[:, None]]
-        t1 = time.perf_counter()
-        for i in range(G):
-            step_batch = {"token": toks[-1],
-                          "pos": torch.full((B,), P + i, dtype=torch.int32,
-                                            device=device)}
-            logits, cache = api.decode_step(params, cache, step_batch)
-            toks.append(torch.argmax(logits, dim=-1).to(torch.int32)[:, None])
-        _sync(device)
-        t_decode = time.perf_counter() - t1
-
-    out = np.concatenate([t.cpu().numpy() for t in toks], axis=1)
     print(json.dumps({
         "arch": cfg.arch,
         "device": (torch.cuda.get_device_name(device)

@@ -61,13 +61,25 @@ class TorchModelApi:
                                   device="meta")
                 for name, spec in self.param_specs.items()}
 
+    def abstract_cache(self, B: int, Smax: int) -> dict[str, torch.Tensor]:
+        """The serving cache's stand-ins on the ``meta`` device (a restore's
+        target)."""
+        return {name: torch.empty(spec.shape, dtype=getattr(torch, spec.dtype),
+                                  device="meta")
+                for name, spec in self.cache_specs(B, Smax).items()}
+
 
 def build_model(cfg: ModelConfig) -> TorchModelApi:
-    """The dense decoder family; other families are not ported yet."""
+    """The dense decoder family and the RG-LRU hybrid (serving); other
+    families are not ported yet."""
+    if cfg.recurrent == "rglru":
+        from repro_torch.models import rglru
+        return rglru.build(cfg)
     if (cfg.family != "dense" or cfg.moe is not None or cfg.enc_dec
             or cfg.recurrent != "none"):
         raise NotImplementedError(
-            f"{cfg.arch}: only the dense transformer family is ported")
+            f"{cfg.arch}: only the dense transformer and RG-LRU hybrid "
+            f"families are ported")
     from repro_torch.models import transformer
     return transformer.build(cfg)
 

@@ -54,6 +54,13 @@ class TorchServeEngine:
 
         # batched cache with PER-SLOT lengths
         c_specs = api.cache_specs(slots, max_seq)
+        other = sorted(set(c_specs) - {"k", "v", "length"})
+        if other:
+            # the splice moves k and v only: a recurrent state (h, conv)
+            # would stay zero and the slot would decode wrong tokens
+            raise ValueError(
+                f"{self.cfg.arch}: TorchServeEngine serves KV-cache families "
+                f"only; the cache also holds {other}")
         self.cache = {k: torch.zeros(s.shape, dtype=getattr(torch, s.dtype),
                                      device=self.device)
                       for k, s in c_specs.items() if k != "length"}

@@ -17,6 +17,8 @@ from repro_torch.kernels.ckpt_pack import ops as pack_ops
 from repro_torch.kernels.ckpt_pack.ref import ckpt_pack_ref
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rglru_scan import ops as scan_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +88,47 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError):
         attn_ops.flash_attention(qb[..., :32], qb[..., :32], qb[..., :32])
+
+
+@pytest.mark.parametrize("B,S,W,with_h0,gates", [
+    (4, 512, 4096, True, "model"),      # the serving path's prefill shape
+    (1, 2048, 4096, True, "model"),
+    (1, 1000, 4096, False, "test"),     # ragged S, h0 = None
+    (2, 300, 1000, True, "test"),       # ragged W
+    (3, 5, 33, True, "test"),           # S shorter than the prefetch depth
+])
+def test_rglru_scan_kernel_within_tolerance(cuda, B, S, W, with_h0, gates):
+    """|kernel - plain| <= 1e-5 + 1e-5 |plain| (tests/test_kernels.py's f32
+    tolerance: the kernel runs the sequential FMA chain, the plain version a
+    doubling scan); gates from the model's range (a = exp(-8 softplus(lam)
+    r)) or from the reference test's (a in [0.8, 0.999]); one launch."""
+    g = torch.Generator(device=cuda).manual_seed(B * S * W)
+    if gates == "model":
+        lam = torch.randn(W, generator=g, device=cuda)
+        r = torch.rand((B, S, W), generator=g, device=cuda)
+        a = torch.exp(-8.0 * torch.logaddexp(lam, torch.zeros_like(lam)) * r)
+        b = torch.sqrt(1.0 - a * a) * torch.randn((B, S, W), generator=g,
+                                                  device=cuda)
+    else:
+        a = 0.8 + 0.199 * torch.rand((B, S, W), generator=g, device=cuda)
+        b = torch.randn((B, S, W), generator=g, device=cuda)
+    h0 = torch.randn((B, W), generator=g, device=cuda) if with_h0 else None
+    scan_ops.launches = 0
+    h, h_last = scan_ops.lru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert scan_ops.launches == 1
+    want, want_last = rglru_scan_ref(a, b, h0)
+    assert bool(((h - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+    assert bool(((h_last - want_last).abs()
+                 <= 1e-5 + 1e-5 * want_last.abs()).all())
+    assert torch.equal(h_last, h[:, -1])
+
+
+def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):
+    a = torch.zeros(1, 8, 4, device=cuda)
+    with pytest.raises(ValueError):
+        scan_ops.lru_scan(a.to(torch.bfloat16), a.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        scan_ops.lru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError):
+        scan_ops.lru_scan(a, a.cpu())
