@@ -67,6 +67,19 @@ ATTN_ATOL = ATTN_RTOL = 2e-2
 # doubling scan: the same sums in another order)
 SCAN_ATOL = SCAN_RTOL = 1e-5
 
+# rounds of ckpt_pack's timing, each the kernel then index_select
+PACK_ROUNDS = 5
+
+# MB that time_ms writes to flush L2 before each timed call.  512 MB takes
+# about 0.16 ms at the HBM rate, longer than the host takes to issue one
+# small kernel (0.03-0.08 ms through a Python wrapper on the H100), so the
+# events around the call time the device.  A 128 MB flush (0.04 ms) can
+# end before the issue does, and then the host's time leaks into the
+# reading; small kernels are also timed with it, for comparison with
+# readings made that way.
+FLUSH_MB = 512
+SHORT_FLUSH_MB = 128
+
 SEED = 0
 NRANKS = 4
 SLOTS = 4
@@ -89,10 +102,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3,
+            flush_mb: int = FLUSH_MB) -> float:
     """Median device time of ``fn`` in ms, by CUDA events around each call,
-    with the 50 MB L2 cache flushed before each (a cold caller)."""
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    with the 50 MB L2 cache flushed before each (a cold caller) by writing
+    ``flush_mb`` MB."""
+    flush = torch.empty(flush_mb << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
@@ -106,6 +121,34 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         events.append((a, b))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def host_ms(fn, iters: int = 100, rounds: int = 5) -> dict:
+    """Per-call times in ms of ``fn`` called ``iters`` times back to back,
+    L2 warm, in ``rounds`` loops (median and least over the loops):
+    ``enqueue_ms``, the host's wall time to issue one call (the calls are
+    asynchronous, so the card does not hold the host back), and
+    ``back_to_back_ms``, the card's span of a loop over ``iters``: the
+    larger of the host's issue time and the device's run time, which is
+    what a caller launching ``fn`` in a loop gets."""
+    fn()
+    enqueue, span = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue.append((time.perf_counter() - t0) * 1e3 / iters)
+        b.record()
+        torch.cuda.synchronize()
+        span.append(a.elapsed_time(b) / iters)
+    return {"enqueue_ms": float(np.median(enqueue)),
+            "enqueue_min_ms": min(enqueue),
+            "back_to_back_ms": float(np.median(span)),
+            "back_to_back_min_ms": min(span)}
 
 
 # ------------------------------------------------------------------ device
@@ -129,8 +172,17 @@ def phase_build() -> None:
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in res["ptxas"].items()}
+    # warpgroup MMA compiled in: HGMMA instructions in the flash library
+    sass = subprocess.run(
+        [str(Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+         str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
     emit({"phase": "build", "seconds": res["seconds"], "built": res["built"],
-          "ptxas": ptxas})
+          "ptxas": ptxas, "flash_attention_hgmma": hgmma})
+    if not hgmma:
+        raise AssertionError("no HGMMA instruction in the flash_attention "
+                             "library: wgmma was not compiled in")
 
 
 # ----------------------------------------------------------------- kernels
@@ -183,48 +235,90 @@ def check_ckpt_pack(params, layout, ownership) -> dict:
             compare(src, ords)
             calls.append((src.shape[1] * src.shape[2] * len(ords), name, src,
                           ords))
-    # time the largest call of the main path
+    # time the largest call of the main path: kernel and index_select in
+    # turns over PACK_ROUNDS rounds, to see their spread beside their gap,
+    # with each flush
     nbytes, name, src, ords = max(calls, key=lambda c: c[0])
     idx_dev = torch.as_tensor(ords, dtype=torch.int32, device="cuda")
-    ms = time_ms(lambda: pack_chunks(src, idx_dev))
-    plain_ms = time_ms(lambda: ckpt_pack_ref(src, idx_dev))
     idx_long = idx_dev.long()
-    library_ms = time_ms(lambda: torch.index_select(src, 0, idx_long))
+    times = {(who, mb): [] for who in ("kernel", "library")
+             for mb in (FLUSH_MB, SHORT_FLUSH_MB)}
+    for _ in range(PACK_ROUNDS):
+        for mb in (FLUSH_MB, SHORT_FLUSH_MB):
+            times["kernel", mb].append(
+                time_ms(lambda: pack_chunks(src, idx_dev), flush_mb=mb))
+            times["library", mb].append(time_ms(
+                lambda: torch.index_select(src, 0, idx_long), flush_mb=mb))
+    plain_ms = time_ms(lambda: ckpt_pack_ref(src, idx_dev))
+    kernel, library = times["kernel", FLUSH_MB], times["library", FLUSH_MB]
+
+    def spread(xs):
+        return {"min": min(xs), "median": float(np.median(xs)),
+                "max": max(xs), "rounds": xs}
+
+    def rounds(mb):
+        ks, ls = times["kernel", mb], times["library", mb]
+        return {"flush_mb": mb, "kernel_ms": spread(ks),
+                "index_select_ms": spread(ls),
+                "kernel_over_index_select": spread(
+                    [a / b for a, b in zip(ks, ls)])}
     return {"name": "ckpt_pack", "route": "cuda",
             "source": "repro_torch/kernels/ckpt_pack/kernel.cu",
             "replaces": "src/repro/kernels/ckpt_pack/kernel.py:40",
-            "max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": float(worst), "ms": float(np.median(kernel)),
+            "plain_ms": plain_ms,
             "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": library_ms,
+            "bound_by": "bytes", "library_ms": float(np.median(library)),
+            "rounds": rounds(FLUSH_MB),
+            "rounds_short_flush": rounds(SHORT_FLUSH_MB),
             "checks": checks, "timed_at": {
                 "array": name, "src": list(src.shape), "chunks": len(ords),
                 "bytes_moved": 2 * nbytes}}
+
+
+def _sdpa(q, k, v, backend, ruler=time_ms):
+    """The library yardstick: ``ruler`` (``time_ms`` or ``host_ms``) of one
+    SDPA call on the same [B, S, H, hd] tensors (GQA by ``enable_gqa``),
+    pinned to ``backend``; None if the backend refuses the shape."""
+    from torch.nn.attention import sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with sdpa_kernel(backend):
+        try:
+            return ruler(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+        except RuntimeError:
+            return None
 
 
 def check_flash_attention(cfg) -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def qkv(B, Sq, Sk):
+    def qkv(B, Sq, Sk, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
+            hd=cfg.head_dim_):
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda",
                                dtype=torch.float32).to(torch.bfloat16)
         return rnd(B, Sq, Hq, hd), rnd(B, Sk, Hkv, hd), rnd(B, Sk, Hkv, hd)
 
+    # the hd 128 case: B 4, S 2048, 16 query and 8 kv heads
+    HD128 = (4, 2048, 16, 8, 128)
     cases = [
-        # B, Sq, Sk, q_offset, window, softcap
-        (4, 2048, 2048, 0, 0, 0.0),        # the slice's prefill shape
-        (4, 1000, 1000, 0, 0, 0.0),        # ragged edges
-        (2, 300, 1324, 1024, 0, 0.0),      # q_offset continuation
-        (1, 700, 700, 0, 256, 0.0),        # sliding window
-        (1, 333, 333, 0, 0, 50.0),         # logit softcap
-    ] + [(1, P, P, 0, 0, 0.0) for P in sorted({p for p, _ in REQUESTS})]
+        # B, Sq, Sk, q_offset, window, softcap, (Hq, Hkv, hd)
+        (4, 2048, 2048, 0, 0, 0.0, ()),    # the slice's prefill shape
+        (4, 1000, 1000, 0, 0, 0.0, ()),    # ragged edges
+        (2, 300, 1324, 1024, 0, 0.0, ()),  # q_offset continuation
+        (1, 700, 700, 0, 256, 0.0, ()),    # sliding window
+        (1, 333, 333, 0, 0, 50.0, ()),     # logit softcap
+        (HD128[0], HD128[1], HD128[1], 0, 0, 0.0, HD128[2:]),
+    ] + [(1, P, P, 0, 0, 0.0, ()) for P in sorted({p for p, _ in REQUESTS})]
     worst, results = 0.0, []
-    for B, Sq, Sk, qoff, win, cap in cases:
-        q, k, v = qkv(B, Sq, Sk)
+    for B, Sq, Sk, qoff, win, cap, heads in cases:
+        q, k, v = qkv(B, Sq, Sk, *heads)
         got = flash_attention(q, k, v, causal=True, window=win, softcap=cap,
                               q_offset=qoff).float()
         want = attention_ref(q, k, v, causal=True, window=win, softcap=cap,
@@ -233,36 +327,63 @@ def check_flash_attention(cfg) -> dict:
         err = (got - want).abs()
         bad = int((err > ATTN_ATOL + ATTN_RTOL * want.abs()).sum())
         worst = max(worst, float(err.max()))
-        results.append({"shape": [B, Sq, Sk], "q_offset": qoff,
+        results.append({"shape": [B, Sq, Sk], "heads": list(q.shape[2:3])
+                        + list(k.shape[2:]), "q_offset": qoff,
                         "window": win, "softcap": cap,
                         "max_abs_err": float(err.max()), "outside_tol": bad})
         if bad or not torch.isfinite(got).all():
             raise AssertionError(f"flash_attention outside tolerance: "
                                  f"{results[-1]}")
-    # timing at the slice's prefill shape
-    B, S = 4, 2048
-    q, k, v = qkv(B, S, S)
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True), iters=5)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    ops = 4 * B * Hq * hd * _pairs(S, S, 0, True, 0)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    t_ops, t_bytes = ops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    # the main path's longest prompt (one request's prefill)
+        del q, k, v, got, want, err
+
+    def timed(B, S, Hq, Hkv, hd, plain=False):
+        """Kernel, SDPA and (optionally) plain times at one causal shape,
+        with the bound of its work."""
+        from torch.nn.attention import SDPBackend
+
+        q, k, v = qkv(B, S, S, Hq, Hkv, hd)
+        backends = {b.name: b for b in (SDPBackend.FLASH_ATTENTION,
+                                        SDPBackend.CUDNN_ATTENTION)}
+        sdpa = {name: _sdpa(q, k, v, b) for name, b in backends.items()}
+        fastest = min((b for b in sdpa if sdpa[b] is not None),
+                      key=sdpa.get)
+        ops = 4 * B * Hq * hd * _pairs(S, S, 0, True, 0)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        t_ops, t_bytes = ops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+        def kernel():
+            return flash_attention(q, k, v, causal=True)
+
+        line = {"shape": [B, S, S, Hq, Hkv, hd], "ms": time_ms(kernel),
+                "ms_short_flush": time_ms(kernel, flush_mb=SHORT_FLUSH_MB),
+                "host": host_ms(kernel),
+                "library_ms": sdpa[fastest], "library": f"SDPA ({fastest})",
+                "sdpa_ms_by_backend": sdpa,
+                "library_host": _sdpa(q, k, v, backends[fastest], host_ms),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "flops": ops}
+        line["tflops"] = ops / line["ms"] * 1e-9
+        if plain:
+            line["plain_ms"] = time_ms(
+                lambda: attention_ref(q, k, v, causal=True), iters=5)
+        return line
+
+    # the slice's prefill shape, the main path's longest prompt (one
+    # request's prefill) and the hd 128 case
+    main = timed(4, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+                 plain=True)
     P = max(p for p, _ in REQUESTS)
-    q1, k1, v1 = qkv(1, P, P)
-    ms_main = time_ms(lambda: flash_attention(q1, k1, v1, causal=True))
+    longest = timed(1, P, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+    hd128 = timed(*HD128)
     return {"name": "flash_attention", "route": "cuda",
             "source": "repro_torch/kernels/flash_attention/kernel.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms, "timed_at": [B, S, S, Hq, Hkv, hd],
+            "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "timed_at": main, "at_longest_prompt": longest, "hd128": hd128,
             "tolerance": {"atol": ATTN_ATOL, "rtol": ATTN_RTOL},
-            "ms_at_longest_prompt": {"shape": [1, P, P], "ms": ms_main},
             "cases": results}
 
 

@@ -3,139 +3,311 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (`flash_attention_fwd`, body `_fwd_kernel`).  Same contract: q [B, Sq, Hq,
-// hd], k and v [B, Sk, Hkv, hd]; query head h reads kv head h / (Hq / Hkv);
-// online softmax with m, l and the accumulator in f32; masked logits are
-// -1e30 as in the Pallas body, so rows agree with it tile for tile.
+// hd], k and v [B, Sk, Hkv, hd]; query head h reads kv head h / (Hq / Hkv),
+// no k/v is copied; online softmax with m, l and the accumulator in f32, P
+// rounded to bf16 for the PV product; masked logits are -1e30 as in the
+// Pallas body, so a row with every key masked averages v as it does.
 //
 // Bound on the card: 4 * B * Hq * hd * (causal pairs) operations at the
-// bf16 tensor-core peak, or bytes(q, k, v, o) over HBM bandwidth, whichever
-// is larger; at prefill lengths the products dominate.
+// bf16 tensor-core peak (989 TFLOP/s); at prefill lengths that is several
+// times the bytes of q, k, v and o over HBM.  Below the products sits the
+// softmax: one exp per logit on the SM's 16-a-clock MUFU, which at hd 64
+// costs as many clocks as the two products together.
 //
-// Design.  On the TPU the k-tile axis was the sequential minor grid axis
-// and the running (m, l, acc) lived in VMEM scratch across grid steps.  On
-// Hopper blocks run in no order, so one thread block owns one (batch*head,
-// 64-row q tile) and loops over the k tiles itself, keeping m, l and acc in
-// registers.  Four warps each hold 16 query rows; QK^T and PV run on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate), the S
-// accumulator is re-packed in registers as the A operand of PV (P is
-// rounded to bf16 for that product; l is summed from the f32 P).  K and V
-// tiles are staged in shared memory with cp.async, double buffered so the
-// next tile loads while this one computes; rows are padded by 8 bf16 to
-// spread shared-memory banks.  Tiles wholly above the causal diagonal or
-// before the window are never visited; the ragged Sq / Sk edges are masked
-// in the kernel (out-of-range rows load as zeros), with no host padding.
-// Late q tiles carry the most causal work, so the grid issues them first.
+// Design.  One block owns one (batch*head, 64-row q tile) and loops over
+// the k tiles it needs, with m, l and the accumulator in registers (on the
+// TPU the k tiles were the sequential minor grid axis with VMEM scratch).
+// 64 rows keep the grid at 72 blocks for a 512-token prompt of smollm.
+//   - Products on warpgroup MMA.  One consumer warpgroup (4 warps, 16 query
+//     rows each) runs S = Q K^T as wgmma m64n64k16 with Q and K read from
+//     shared memory, and O += P V with P in registers as the A operand: the
+//     S accumulator, converted pairwise to bf16x2, is already laid out as
+//     the A fragment.  V is the shared-memory B operand with the transpose
+//     bit set, so it needs no transposed copy.  hd 128 runs PV as
+//     m64n128k16.
+//   - Products overlap the softmax.  QK^T of tile i + 1 and PV of tile i
+//     are in flight together while the ALUs and the exp unit work on the
+//     softmax of tile i + 1; several blocks share an SM (3 at hd 64, 2 at
+//     hd 128) and fill each other's gaps.
+//   - Copies by TMA into a ring.  A producer warp (one elected thread)
+//     loads Q once and the K and V tiles of 64 keys into STAGES ring slots.
+//     K and V each have a full barrier the consumers wait on and an empty
+//     barrier they release: K's slot as soon as QK^T has retired, V's after
+//     PV, so the next K lands a whole tile earlier than V.  The tensor maps
+//     span the true [B, S, H, hd] view, so a ragged tile reads TMA's zero
+//     fill, never the next sequence, and the host pads nothing.  128-byte
+//     swizzle (one 64-column atom; hd 128 is two boxes) lets the wgmma
+//     descriptors read without bank conflicts.
+//   - Masks only where needed.  Tiles wholly above the diagonal or before
+//     the window are never visited; interior tiles run with no per-element
+//     mask, and only the diagonal, window-edge and ragged-Sk tiles take the
+//     masked variant.
+//   - exp2 softmax: scale * log2(e) folds into one FFMA before ex2; the
+//     softcap's tanh stays on the scaled logit, as the reference orders it.
+//   - The grid issues the heavy (late) q tiles of every head first.
+// Every branch between an asynchronous product and its wait must look
+// warp-uniform to the compiler, or ptxas serialises the products: the role
+// split is broadcast from lane 0 and the barrier spin stays inside asm.
+// cuTensorMapEncodeTiled lives in libcuda, which this library does not
+// link: the host code gets it through the runtime's entry-point query
+// (cudaGetDriverEntryPointByVersion, CUDA 12.5 and later).  Per launch the
+// host encodes three tensor maps; the shared-memory limit is raised once.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#if CUDART_VERSION < 12050
+#error "flash_attention needs CUDA 12.5+ (cudaGetDriverEntryPointByVersion)"
+#endif
+
 namespace {
 
-constexpr int BM = 64;          // query rows per block
-constexpr int BN = 64;          // keys per tile
-constexpr int kWarps = 4;       // 16 query rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int PAD = 8;          // bf16 of padding per shared-memory row
+constexpr int BM = 64;                    // query rows per block
+constexpr int BN = 64;                    // keys per tile
+constexpr int kConsumers = 128;           // the consumer warpgroup
+constexpr int kThreads = kConsumers + 32; // and the producer warp
+constexpr int kAtom = 64;                 // bf16 in one 128-byte swizzle row
+constexpr uint32_t kBox = BN * kAtom * 2; // one 64-row x 64-column box, 8 KB
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int kMaxDevices = 64;           // cards a process may launch on
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  CUtensorMap tq, tk, tv;       // (hd, H, S, B) views of q, k, v
   __nv_bfloat16* o;
-  long long q_sb, q_ss, q_sh;   // element strides (batch, seq, head)
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  int Sq, Sk, Hq, G;            // G = Hq / Hkv
-  int causal, window, q_offset, nq_tiles;
-  float scale, softcap;
+  long long o_sb, o_ss, o_sh;   // element strides (batch, seq, head)
+  int Sq, Sk, Hq, G, nq_tiles;  // G = Hq / Hkv
+  int causal, window, q_offset;
+  float scale_log2;             // log2(e) / sqrt(hd)
+  float softcap, cap_in, cap_out;  // scale / cap; cap * log2(e)
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;   // 0 source bytes => zero fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n));
+// shared memory: Q, then STAGES K tiles, then STAGES V tiles, each
+// 64 x HD bf16 (1024-byte aligned), then the barriers: Q's full, then K's
+// and V's full, then K's and V's empty, one per slot
+template <int HD, int STAGES>
+struct Smem {
+  static constexpr uint32_t kTile = BN * HD * 2;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kTile;
+  static constexpr uint32_t kV = kK + STAGES * kTile;
+  static constexpr uint32_t kBar = kV + STAGES * kTile;
+  static constexpr uint32_t kBytes = kBar + (1 + 4 * STAGES) * 8;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// ---- mbarriers
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
-// rows [row0, row0 + BN_or_BM) of a [S, hd] head slice into shared memory;
-// rows at or past `valid` are zero-filled
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[HD + PAD],
-                                          const __nv_bfloat16* base,
-                                          long long row_stride, int row0,
-                                          int valid) {
-  constexpr int kChunksPerRow = HD / 8;          // 16-byte pieces
-  for (int c = threadIdx.x; c < ROWS * kChunksPerRow; c += kThreads) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * 8;
-    const int gr = row0 + r;
-    const bool ok = gr < valid;
-    const __nv_bfloat16* src = ok ? base + gr * row_stride + col : base;
-    cp_async16(&dst[r][col], src, ok);
-  }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
+// the spin loop stays inside the asm: a C++ loop on a per-thread flag would
+// be a divergent branch to the compiler, which then serialises the
+// asynchronous products around it
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n\t.reg .pred p;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n\t}\n"
+      :: "r"(bar), "r"(parity) : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ---- TMA: one 4-d box (c0 = column, c1 = head, c2 = row, c3 = batch)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack2(const __nv_bfloat16* lo,
-                                          const __nv_bfloat16* hi) {
-  return (uint32_t)(*reinterpret_cast<const unsigned short*>(lo)) |
-         ((uint32_t)(*reinterpret_cast<const unsigned short*>(hi)) << 16);
+// ---- wgmma
+// shared-memory matrix descriptor, 128-byte swizzle; lbo / sbo in bytes
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(lbo >> 4) << 16)
+         | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product's fence and wait
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// and the registers of an A fragment, read by the product until its wait
+__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(r[i / 4][i % 4]) :: "memory");
+}
+
+#define D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define D32(i) D4(i), D4(i + 4), D4(i + 8), D4(i + 12), D4(i + 16), \
+               D4(i + 20), D4(i + 24), D4(i + 28)
+
+// S[64 x 64] (+)= Q[64 x 16] K[64 x 16]^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D32(0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O[64 x 64] += P[64 x 16] (registers) V[16 x 64] (MN-major: transposed)
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x 128] += P[64 x 16] (registers) V[16 x 128] (MN-major: transposed)
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, "
+      "1, 1, 1;\n}\n"
+      : D32(0), D32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef D32
+#undef D4
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Params p) {
-  typedef __nv_bfloat16 Row[HD + PAD];
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Row* sQ = reinterpret_cast<Row*>(smem_raw);   // [BM]
-  Row* sK = sQ + BM;                            // [2][BN]
-  Row* sV = sK + 2 * BN;                        // [2][BN]
+// One k tile of the online softmax on this thread's share of S: rows r and
+// r + 8 (i = e >> 1), columns 8j + 2t + (e & 1) of element s[4j + e].  s
+// holds raw logits (softcapped ones already in the log2 domain, mul = 1)
+// and leaves as P = exp2(y - m); m2 is the running max of y = s * mul.
+template <bool MASK>
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m2)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               float mul, int qpos, int kpos,
+                                               const Params& p) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& x = s[4 * j + e];
+      if (MASK) {
+        const int qp = qpos + (e >> 1) * 8;
+        const int kp = kpos + j * 8 + (e & 1);
+        bool ok = kp < p.Sk;
+        if (p.causal) ok = ok && kp <= qp;
+        if (p.window > 0) ok = ok && kp > qp - p.window;
+        x = ok ? x * mul : NEG_INF;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    if (!MASK) mx[i] *= mul;
+    const float m_new = fmaxf(m2[i], mx[i]);
+    corr[i] = ex2(m2[i] - m_new);
+    m2[i] = m_new;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& x = s[4 * j + e];
+      const float m = m2[e >> 1];
+      x = MASK ? ex2(x - m) : ex2(fmaf(x, mul, -m));
+      l[e >> 1] += x;
+    }
+  }
+}
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;        // mma row group
-  const int t = lane & 3;         // thread in group
+template <int HD, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
+flash_fwd_kernel(const __grid_constant__ Params p) {
+  using L = Smem<HD, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzle atoms must sit on 1024-byte boundaries
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  auto k_full = [&](int st) { return q_full + 8u * (1 + st); };
+  auto v_full = [&](int st) { return q_full + 8u * (1 + STAGES + st); };
+  auto k_empty = [&](int st) { return q_full + 8u * (1 + 2 * STAGES + st); };
+  auto v_empty = [&](int st) { return q_full + 8u * (1 + 3 * STAGES + st); };
 
-  const int qt = p.nq_tiles - 1 - (int)blockIdx.x;   // heavy tiles first
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int qt = p.nq_tiles - 1 - (int)blockIdx.y;   // heavy tiles first
   const int b = bh / p.Hq;
   const int h = bh % p.Hq;
   const int kvh = h / p.G;
   const int q0 = qt * BM;
-
-  const __nv_bfloat16* qbase = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kbase = p.k + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vbase = p.v + b * p.v_sb + kvh * p.v_sh;
 
   // the k tiles this q tile needs: skip tiles wholly above the causal
   // diagonal or wholly before the sliding window (Pallas's `needed`)
@@ -148,167 +320,261 @@ flash_fwd_kernel(const Params p) {
     const int kmin = first_q - p.window + 1;
     kt_begin = kmin > 0 ? kmin / BN : 0;
   }
+  const int n = max(kt_end - kt_begin, 0);
 
-  load_tile<HD, BM>(sQ, qbase, p.q_ss, q0, p.Sq);
-  if (kt_begin < kt_end) {
-    load_tile<HD, BN>(sK, kbase, p.k_ss, kt_begin * BN, p.Sk);
-    load_tile<HD, BN>(sV, vbase, p.v_ss, kt_begin * BN, p.Sk);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), kConsumers);
+      mbar_init(v_empty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
+  __syncthreads();
 
-  const int r0 = warp * 16 + g;   // this thread's rows: r0 and r0 + 8
-  float o_acc[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
-    o_acc[i][0] = o_acc[i][1] = o_acc[i][2] = o_acc[i][3] = 0.f;
+  // the role, broadcast from lane 0 so the compiler sees it warp-uniform
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / kConsumers, 0);
+  if (role != 0) {
+    // ---- producer: one thread keeps the ring full
+    if (threadIdx.x == kConsumers && n > 0) {
+      mbar_expect_tx(q_full, L::kTile);
+      for (int c = 0; c < HD / kAtom; ++c)
+        tma_load(sQ + c * kBox, &p.tq, q_full, c * kAtom, h, q0, b);
+      for (int i = 0; i < n; ++i) {
+        const int st = i % STAGES;
+        const uint32_t ph = ((i / STAGES) & 1) ^ 1;
+        const int k0 = (kt_begin + i) * BN;
+        const uint32_t dk = sK + st * L::kTile, dv = sV + st * L::kTile;
+        mbar_wait(k_empty(st), ph);
+        mbar_expect_tx(k_full(st), L::kTile);
+        for (int c = 0; c < HD / kAtom; ++c)
+          tma_load(dk + c * kBox, &p.tk, k_full(st), c * kAtom, kvh, k0, b);
+        mbar_wait(v_empty(st), ph);
+        mbar_expect_tx(v_full(st), L::kTile);
+        for (int c = 0; c < HD / kAtom; ++c)
+          tma_load(dv + c * kBox, &p.tv, v_full(st), c * kAtom, kvh, k0, b);
+      }
+    }
+    return;
   }
-  float m_r[2] = {NEG_INF, NEG_INF};
-  float l_r[2] = {0.f, 0.f};      // partial over this thread's columns
-  uint32_t qf[HD / 16][4];
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int st = (kt - kt_begin) & 1;
-    if (kt + 1 < kt_end) {        // prefetch the next tile into the other stage
-      load_tile<HD, BN>(sK + (st ^ 1) * BN, kbase, p.k_ss, (kt + 1) * BN, p.Sk);
-      load_tile<HD, BN>(sV + (st ^ 1) * BN, vbase, p.v_ss, (kt + 1) * BN, p.Sk);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();           // everything but the newest group landed
-    __syncthreads();
+  // ---- consumer warpgroup: 16 query rows a warp
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + (lane >> 2);   // this thread's rows: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);            // and columns 8j + c0, + 1
 
-    if (kt == kt_begin) {
+  float o[HD / 2];
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int c = kk * 16 + 2 * t;
-        qf[kk][0] = ld32(&sQ[r0][c]);
-        qf[kk][1] = ld32(&sQ[r0 + 8][c]);
-        qf[kk][2] = ld32(&sQ[r0][c + 8]);
-        qf[kk][3] = ld32(&sQ[r0 + 8][c + 8]);
-      }
-    }
-    const Row* K = sK + st * BN;
-    const Row* V = sV + st * BN;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  uint32_t pa[4][4];                // P of the tile in flight, bf16x2
+  float m2[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};          // partial over this thread's columns
+  float corr[2];
+  const float mul = p.softcap > 0.f ? 1.f : p.scale_log2;
+  const int q_last = first_q + BM - 1;   // rows past Sq included
 
-    // S = Q K^T for this warp's 16 rows x BN keys
-    float s[BN / 8][4];
+  // S = Q K^T for ring slot st: hd / 16 steps of 16 columns, each 32 bytes
+  // further into the swizzle rows (hd 128: the second box from step 4)
+  auto qk = [&](int st) {
+    const uint32_t tk = sK + st * L::kTile;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const __nv_bfloat16* kr = &K[nt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(s[nt], qf[kk], ld32(kr), ld32(kr + 8));
-      }
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+      wgmma_qk(s, desc_sw128(sQ + off, 16, 1024),
+               desc_sw128(tk + off, 16, 1024), kk > 0);
     }
+  };
+  // O += P V for ring slot st: 16 keys (two 8-row swizzle groups, 2 KB) a
+  // step; hd 128's two 64-column boxes lie kBox apart (the leading offset)
+  auto pv = [&](int st) {
+    const uint32_t tv = sV + st * L::kTile;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_pv(o, pa[j], desc_sw128(tv + j * 2048, kBox, 1024));
+  };
+  // the online softmax of k tile i on s (its logits); sets corr
+  auto softmax = [&](int i) {
+    const int k_lo = (kt_begin + i) * BN;
+    if (p.softcap > 0.f) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = p.cap_out * tanhf(s[e] * p.cap_in);
+    }
+    // only the diagonal, window-edge and ragged-Sk tiles need the mask
+    const bool edge = k_lo + BN > p.Sk || (p.causal && k_lo + BN - 1 > first_q)
+                      || (p.window > 0 && k_lo <= q_last - p.window);
+    if (edge)
+      online_softmax<true>(s, m2, l, corr, mul, first_q + r0, k_lo + c0, p);
+    else
+      online_softmax<false>(s, m2, l, corr, mul, first_q + r0, k_lo + c0, p);
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+  };
+  // the S accumulator's n-blocks 2j and 2j + 1 are P's A fragment for
+  // keys 16j .. 16j + 15
+  auto pack = [&]() {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pa[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+      pa[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+      pa[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+      pa[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+    }
+  };
 
-    // scale, softcap, mask; row max over the tile
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + (e >> 1) * 8;
-        const int qpos = p.q_offset + q0 + row;
-        const int kpos = kt * BN + nt * 8 + 2 * t + (e & 1);
-        float x = s[nt][e] * p.scale;
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        bool ok = kpos < p.Sk;
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window > 0) ok = ok && kpos > qpos - p.window;
-        x = ok ? x : NEG_INF;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+  // Tile i's PV product runs on the tensor cores while the softmax of tile
+  // i + 1 runs beside it: QK^T(i + 1) and PV(i) are issued as two groups,
+  // waiting for the older group releases S (and K's slot), and O is
+  // rescaled only after PV(i) has retired (and V's slot with it).  The
+  // first tile's product and the last tile's PV are peeled off, so no
+  // branch sits between an asynchronous product and its wait.
+  if (n > 0) {
+    mbar_wait(q_full, 0);
+    mbar_wait(k_full(0), 0);
+    wg_fence();
+    qk(0);
+    wg_commit();
+    wg_wait<0>();
+    pin(s);
+    mbar_arrive(k_empty(0));
+    softmax(0);
+    pack();
+    for (int i = 0; i + 1 < n; ++i) {
+      const int st = i % STAGES, st1 = (i + 1) % STAGES;
+      mbar_wait(k_full(st1), ((i + 1) / STAGES) & 1);
+      mbar_wait(v_full(st), (i / STAGES) & 1);
+      wg_fence();
+      qk(st1);
+      wg_commit();
+      pv(st);
+      wg_commit();
+      wg_wait<1>();
+      pin(s);
+      mbar_arrive(k_empty(st1));
+      softmax(i + 1);
+      wg_wait<0>();
+      pin(o);
+      pin(pa);
+      mbar_arrive(v_empty(st));
+      rescale();
+      pack();
     }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      corr[i] = __expf(m_r[i] - m_new);
-      m_r[i] = m_new;
-      l_r[i] *= corr[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = __expf(s[nt][e] - m_r[e >> 1]);
-        s[nt][e] = pe;
-        l_r[e >> 1] += pe;
-      }
-    }
-#pragma unroll
-    for (int dn = 0; dn < HD / 8; ++dn) {
-      o_acc[dn][0] *= corr[0];
-      o_acc[dn][1] *= corr[0];
-      o_acc[dn][2] *= corr[1];
-      o_acc[dn][3] *= corr[1];
-    }
-
-    // O += P V: the S accumulator tiles (2j, 2j+1) are the A fragment of
-    // the j-th 16-key step
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_f32(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_f32(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_f32(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_f32(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const int k0 = j * 16 + 2 * t;
-#pragma unroll
-      for (int dn = 0; dn < HD / 8; ++dn) {
-        const int col = dn * 8 + g;
-        const uint32_t b0 = pack2(&V[k0][col], &V[k0 + 1][col]);
-        const uint32_t b1 = pack2(&V[k0 + 8][col], &V[k0 + 9][col]);
-        mma_16816(o_acc[dn], a, b0, b1);
-      }
-    }
-    __syncthreads();              // this stage is free for the next prefetch
+    const int st = (n - 1) % STAGES;
+    mbar_wait(v_full(st), ((n - 1) / STAGES) & 1);
+    wg_fence();
+    pv(st);
+    wg_commit();
+    wg_wait<0>();
+    pin(o);
+    mbar_arrive(v_empty(st));
   }
-  cp_async_wait<0>();
 
   // finalize: o = acc / max(l, 1e-30), rows past Sq are not written
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qrow = q0 + r0 + i * 8;
     if (qrow >= p.Sq) continue;
-    const float inv = 1.f / fmaxf(l_r[i], 1e-30f);
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
     __nv_bfloat16* orow = p.o + b * p.o_sb + qrow * p.o_ss + h * p.o_sh;
 #pragma unroll
-    for (int dn = 0; dn < HD / 8; ++dn) {
-      const uint32_t w = pack_f32(o_acc[dn][2 * i] * inv,
-                                  o_acc[dn][2 * i + 1] * inv);
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) = w;
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + c0) =
+          pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
     }
   }
 }
 
-template <int HD>
-int launch(const Params& p, int batch_heads, cudaStream_t stream) {
-  const size_t smem = (size_t)(BM + 4 * BN) * (HD + PAD) * sizeof(__nv_bfloat16);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// ---- host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
   }
-  dim3 grid((unsigned)p.nq_tiles, (unsigned)batch_heads);
-  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(p);
+  return fn;
+}
+
+// A tensor map over a [B, S, H, hd] bf16 tensor with element strides
+// (sb, ss, sh) and a contiguous head dim, in 64 x 64 boxes (one head, 64
+// rows, 64 columns), 128-byte swizzled; rows past S read as zeros.
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
+             long long sb, long long ss, long long sh) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInvalidValue;
+  cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H,
+                        (cuuint64_t)(S > 0 ? S : 1), (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                           (cuuint64_t)sb * 2};
+  // a dimension of size 1 is never stepped: give it a stride TMA accepts
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) strides[i] = (i == 0 ? dims[0] * 2 : strides[i - 1] * dims[i]);
+  }
+  cuuint32_t box[4] = {(cuuint32_t)kAtom, 1, (cuuint32_t)BN, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(ptr), dims, strides, box, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HD, int STAGES, int MIN_BLOCKS>
+int launch(const Params& p, int batch_heads, cudaStream_t stream) {
+  const size_t smem = Smem<HD, STAGES>::kBytes + 1024;   // + alignment slack
+  auto kernel = flash_fwd_kernel<HD, STAGES, MIN_BLOCKS>;
+  // the shared-memory limit is raised once per card, not on every launch
+  static std::atomic<bool> raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    raised[dev] = true;
+  }
+  dim3 grid((unsigned)batch_heads, (unsigned)p.nq_tiles);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface (loaded with ctypes).  Strides are in elements; the head dim
-// of every tensor is contiguous.  Returns cudaGetLastError() (0 = launched),
-// or cudaErrorInvalidValue for a head dim the kernel is not built for.
+// of every tensor is contiguous, the others are multiples of 8 elements and
+// the bases 16-byte aligned (TMA's rules).  Returns cudaGetLastError() (0 =
+// launched), or cudaErrorInvalidValue for a head dim the kernel is not
+// built for or a tensor map cuTensorMapEncodeTiled refuses.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o,
     int B, int Sq, int Sk, int Hq, int Hkv, int hd,
@@ -317,26 +583,27 @@ extern "C" int flash_attention_fwd_launch(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, float softcap, int q_offset, void* stream) {
+  if (B <= 0 || Sq <= 0) return 0;
+  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
+  int err = make_map(&p.tq, q, B, Sq, Hq, hd, q_sb, q_ss, q_sh);
+  if (!err) err = make_map(&p.tk, k, B, Sk, Hkv, hd, k_sb, k_ss, k_sh);
+  if (!err) err = make_map(&p.tv, v, B, Sk, Hkv, hd, v_sb, v_ss, v_sh);
+  if (err) return err;
   p.o = static_cast<__nv_bfloat16*>(o);
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.Sq = Sq; p.Sk = Sk; p.Hq = Hq; p.G = Hq / Hkv;
-  p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.nq_tiles = (Sq + BM - 1) / BM;
-  p.scale = 1.f / sqrtf((float)hd);
+  if (p.nq_tiles > 65535) return (int)cudaErrorInvalidValue;
+  p.causal = causal; p.window = window; p.q_offset = q_offset;
+  const float scale = 1.f / sqrtf((float)hd);
+  p.scale_log2 = scale * LOG2E;
   p.softcap = softcap;
-  if (B <= 0 || Sq <= 0) return 0;
-  const int batch_heads = B * Hq;
+  p.cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  p.cap_out = softcap * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 64: return launch<64>(p, batch_heads, s);
-    case 128: return launch<128>(p, batch_heads, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // ring depth and blocks per SM: 3 and 3 at hd 64 (57 KB of shared
+  // memory, at most 136 registers a thread); 2 and 2 at hd 128 (81 KB)
+  return hd == 64 ? launch<64, 3, 3>(p, B * Hq, s)
+                  : launch<128, 2, 2>(p, B * Hq, s);
 }

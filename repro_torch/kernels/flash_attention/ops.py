@@ -1,11 +1,14 @@
 """Dispatching wrapper of the flash attention forward.
 
 A CPU tensor takes the plain version (``ref.py``).  A CUDA tensor launches
-the hand-written kernel (``kernel.cu``: bf16, head dim 64 or 128) or
-raises; there is no fallback.  ``launches`` counts the kernel's launches
-(callers may reset it to 0).  The kernel picks its own 64 x 64 tiles, so
-unlike the Pallas wrapper this one takes no block sizes.  Forward only: the
-backward comes with the training slice.
+the hand-written Hopper kernel (``kernel.cu``: bf16, head dim 64 or 128;
+TMA copies into an mbarrier ring, products on warpgroup MMA) or raises;
+there is no fallback.  ``launches`` counts the kernel's launches (callers
+may reset it to 0).  The kernel picks its own 64 x 64 tiles, so unlike the
+Pallas wrapper this one takes no block sizes.  k and v may be strided views
+(slices of one fused tensor, say): the kernel's tensor maps take any
+strides that are multiples of 8 elements over a contiguous head dim.
+Forward only: the backward comes with the training slice.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"flash_attention: the kernel takes bfloat16 "
                              f"tensors on one card; {name} is {t.dtype} on "
                              f"{t.device}")
-        # 16-byte cp.async rows: contiguous head dim, strides of 8 elements
+        # TMA's rules: contiguous head dim, 16-byte base and strides
         if (t.stride(-1) != 1 or t.data_ptr() % 16
                 or any(s % 8 for s in t.stride()[:-1])):
             raise ValueError(f"flash_attention: {name} needs a contiguous, "

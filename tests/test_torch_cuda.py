@@ -58,19 +58,40 @@ def test_ckpt_pack_kernel_into_offset_buffer(cuda):
     assert torch.equal(out, want) and int(staging[0]) == 0
 
 
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,window,cap,qoff", [
-    (2, 128, 128, 9, 3, 64, 0, 0.0, 0),
-    (1, 33, 57, 2, 2, 64, 0, 0.0, 24),     # ragged, continuation
-    (1, 200, 200, 4, 1, 128, 48, 0.0, 0),   # window, hd 128
-    (2, 96, 96, 4, 2, 64, 0, 30.0, 0),      # softcap
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,window,cap,qoff,fused", [
+    (2, 128, 128, 9, 3, 64, 0, 0.0, 0, False),
+    (1, 33, 57, 2, 2, 64, 0, 0.0, 24, False),     # ragged, continuation
+    (1, 200, 200, 4, 1, 128, 48, 0.0, 0, False),  # window, hd 128
+    (2, 96, 96, 4, 2, 64, 0, 30.0, 0, False),     # softcap
+    # one row, one tile, and a row or a tile either side of the 64-row tile
+    (1, 1, 1, 3, 3, 64, 0, 0.0, 0, False),        # G 1
+    (1, 63, 63, 9, 3, 64, 0, 0.0, 0, False),      # G 3
+    (1, 64, 64, 9, 1, 64, 0, 0.0, 0, False),      # G 9
+    (2, 65, 65, 3, 1, 64, 0, 0.0, 0, False),
+    (1, 127, 127, 9, 3, 64, 0, 0.0, 0, False),
+    (1, 129, 129, 9, 3, 64, 0, 0.0, 0, False),
+    (1, 129, 129, 4, 2, 128, 0, 0.0, 0, False),   # hd 128: two boxes a tile
+    (2, 100, 300, 9, 3, 64, 0, 0.0, 200, False),  # q_offset, Sq % 64 != 0
+    (1, 150, 150, 4, 2, 64, 16, 0.0, 0, False),   # window inside one tile
+    (1, 200, 200, 4, 2, 64, 40, 30.0, 0, False),  # softcap and window
+    (2, 150, 150, 6, 2, 64, 0, 0.0, 0, True),     # k, v slices of one tensor
+    (1, 129, 129, 8, 4, 128, 0, 0.0, 0, True),
 ])
 def test_flash_attention_kernel_within_tolerance(cuda, B, Sq, Sk, Hq, Hkv, hd,
-                                                 window, cap, qoff):
+                                                 window, cap, qoff, fused):
     """|kernel - plain| <= 2e-2 + 2e-2 |plain|: P is rounded to bf16 for
-    the PV tensor-core product and the output to bf16."""
+    the PV tensor-core product and the output to bf16.  ``fused``: k and v
+    are the two non-contiguous halves of one [B, Sk, 2 Hkv, hd] tensor."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
-               for s in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
+    q = torch.randn((B, Sq, Hq, hd), generator=g, device=cuda).to(torch.bfloat16)
+    if fused:
+        kv = torch.randn((B, Sk, 2 * Hkv, hd), generator=g,
+                         device=cuda).to(torch.bfloat16)
+        k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]
+        assert not k.is_contiguous() and not v.is_contiguous()
+    else:
+        k, v = (torch.randn((B, Sk, Hkv, hd), generator=g,
+                            device=cuda).to(torch.bfloat16) for _ in range(2))
     attn_ops.launches = 0
     got = attn_ops.flash_attention(q, k, v, window=window, softcap=cap,
                                    q_offset=qoff).float()
@@ -78,6 +99,7 @@ def test_flash_attention_kernel_within_tolerance(cuda, B, Sq, Sk, Hq, Hkv, hd,
     assert attn_ops.launches == 1
     want = attention_ref(q, k, v, window=window, softcap=cap,
                          q_offset=qoff).float()
+    assert bool(torch.isfinite(got).all())
     assert bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all())
 
 
@@ -88,6 +110,10 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError):
         attn_ops.flash_attention(qb[..., :32], qb[..., :32], qb[..., :32])
+    # TMA needs 16-byte strides: a row stride of 68 elements is refused
+    wide = torch.zeros(1, 8, 2, 68, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention(qb, wide[..., :64], wide[..., :64])
 
 
 @pytest.mark.parametrize("B,S,W,with_h0,gates", [
