@@ -411,54 +411,95 @@ def check_rglru_scan(W: int) -> dict:
         # tests/test_kernels.py's range, where error accumulates most
         return 0.8 + 0.199 * uni(B, S, W), rnd(B, S, W)
 
+    # the kernel's chunk is 64 steps and its W tile 64 columns; W % 4 != 0
+    # or an unaligned base stages by cp.async, the rest by TMA
     cases = [
-        # B, S, W, h0, gates
-        (HYBRID_B, HYBRID_P, W, True, model_gates),   # the path's prefill
-        (1, 2048, W, True, model_gates),
-        (1, 1000, W, False, model_gates),             # ragged S, h0 = None
-        (2, 300, 1000, True, model_gates),            # ragged W
-        (HYBRID_B, HYBRID_P, W, True, test_gates),
-        (1, 2048, W, True, test_gates),
+        # B, S, W, h0, gates, unaligned base
+        (HYBRID_B, HYBRID_P, W, True, model_gates, False),  # path's prefill
+        (1, 2048, W, True, model_gates, False),
+        (1, 1000, W, False, model_gates, False),      # ragged S, h0 = None
+        (2, 300, 1000, True, model_gates, False),     # ragged W
+        (HYBRID_B, HYBRID_P, W, True, test_gates, False),
+        (1, 2048, W, True, test_gates, False),
+        (2, 1, W, True, model_gates, False),          # S = 1
+        (2, 64, W, True, test_gates, False),          # S = one chunk
+        (2, 65, W, True, test_gates, False),          # S = one chunk + 1
+        (1, 4096, W, True, test_gates, False),        # 64 chunks, look-back
+        (2, 130, 100, True, test_gates, False),       # W % 64 != 0 (TMA)
+        (2, 200, 65, True, test_gates, False),        # W % 4 != 0 (cp.async)
+        (3, 200, W, False, model_gates, False),       # h0 = None, 4 chunks
+        (2, 300, W, True, model_gates, True),         # unaligned (cp.async)
     ]
     worst, results = 0.0, []
-    for B, S, Wc, with_h0, gates in cases:
-        a, b = gates(B, S, Wc)
-        h0 = rnd(B, Wc) if with_h0 else None
-        h, h_last = lru_scan(a, b, h0)
+
+    def compare(a, b, h0, h, h_last):
         want, want_last = rglru_scan_ref(a, b, h0)
         torch.cuda.synchronize()
         bad = sum(int(((got - ref).abs()
                        > SCAN_ATOL + SCAN_RTOL * ref.abs()).sum())
                   for got, ref in ((h, want), (h_last, want_last)))
-        err = float((h - want).abs().max())
+        if not torch.equal(h_last, h[:, -1]):
+            bad += 1
+        return bad, float((h - want).abs().max()), float(want.abs().max())
+
+    def unaligned(t):
+        return torch.empty(t.numel() + 1, device="cuda")[1:].view_as(t) \
+            .copy_(t)
+
+    for B, S, Wc, with_h0, gates, shifted in cases:
+        a, b = gates(B, S, Wc)
+        h0 = rnd(B, Wc) if with_h0 else None
+        h, h_last = (lru_scan(unaligned(a), unaligned(b), h0) if shifted
+                     else lru_scan(a, b, h0))
+        bad, err, top = compare(a, b, h0, h, h_last)
         worst = max(worst, err)
         results.append({"shape": [B, S, Wc], "h0": with_h0,
-                        "gates": gates.__name__, "max_abs_err": err,
-                        "max_abs_h": float(want.abs().max()),
+                        "gates": gates.__name__, "unaligned": shifted,
+                        "max_abs_err": err, "max_abs_h": top,
                         "outside_tol": bad})
         if bad or not torch.isfinite(h).all():
             raise AssertionError(f"rglru_scan outside tolerance: "
                                  f"{results[-1]}")
-    # timing at the hybrid path's prefill shape
-    B, S = HYBRID_B, HYBRID_P
-    a, b = model_gates(B, S, W)
-    h0 = rnd(B, W)
-    ms = time_ms(lambda: lru_scan(a, b, h0))
-    plain_ms = time_ms(lambda: rglru_scan_ref(a, b, h0), iters=5)
-    # read a, b and h0; write h and h_last
-    nbytes = 4 * (3 * B * S * W + 2 * B * W)
+    # calls back to back on one stream reuse the look-back scratch: each
+    # must find its ticket counter and look-back words fresh
+    ins = [(*test_gates(B, S, Wc), rnd(B, Wc)) for B, S, Wc in
+           [(HYBRID_B, HYBRID_P, W)] * 2 + [(1, 2048, W), (2, 65, 100),
+                                             (HYBRID_B, HYBRID_P, W)]]
+    outs = [lru_scan(a, b, h0) for a, b, h0 in ins]
+    back_to_back = [compare(*i, *o)[0] for i, o in zip(ins, outs)]
+    if any(back_to_back):
+        raise AssertionError(f"rglru_scan back to back outside tolerance: "
+                             f"{back_to_back}")
+    del ins, outs
+
+    def timed(B, S):
+        a, b = model_gates(B, S, W)
+        h0 = rnd(B, W)
+        h = torch.empty_like(a)
+        # read a, b and h0; write h and h_last
+        nbytes = 4 * (3 * B * S * W + 2 * B * W)
+        return {"shape": [B, S, W], "h0": True, "bytes_moved": nbytes,
+                "ms": time_ms(lambda: lru_scan(a, b, h0)),
+                "plain_ms": time_ms(lambda: rglru_scan_ref(a, b, h0),
+                                    iters=5),
+                # the same bytes at the card's achievable rate: not the same
+                # function, so not library_ms
+                "ruler_add_ms": time_ms(lambda: torch.add(a, b, out=h)),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+    # the hybrid path's prefill shape, and one long prompt at B 1
+    main, long_prompt = timed(HYBRID_B, HYBRID_P), timed(1, 2048)
     return {"name": "rglru_scan", "route": "cuda",
             "source": "repro_torch/kernels/rglru_scan/kernel.cu",
             "replaces": "src/repro/kernels/rglru_scan/kernel.py:51",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None,
+            "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
             "library_note": "no single PyTorch call computes a first-order "
                             "linear recurrence",
-            "timed_at": {"shape": [B, S, W], "h0": True,
-                         "bytes_moved": nbytes},
+            "timed_at": main, "at_b1_s2048": long_prompt,
             "tolerance": {"atol": SCAN_ATOL, "rtol": SCAN_RTOL},
-            "cases": results}
+            "back_to_back_calls": len(back_to_back), "cases": results}
 
 
 # -------------------------------------------------------------- main path

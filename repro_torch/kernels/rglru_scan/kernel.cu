@@ -3,102 +3,445 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/rglru_scan/kernel.py
 // (`rglru_scan`, body `_scan_kernel`): h_t = a_t * h_{t-1} + b_t for
 // a, b [B, S, W] f32, from h0 [B, W] (zeros when absent), giving h [B, S, W]
-// f32 and h_last [B, W].  Every RG-LRU layer's prefill runs it on the gates
-// that the surrounding PyTorch code computes.
+// f32 and h_last [B, W] (bit-equal to h[:, S-1]).  Every RG-LRU layer's
+// prefill runs it on the gates that the surrounding PyTorch code computes.
 //
-// Bound on the card: bytes.  The work is one FMA per element against
-// 12 bytes moved (read a and b, write h), so the least time is
-// 4 * (3 * B*S*W + 2 * B*W) bytes over HBM bandwidth.  What actually bounds
-// this design is latency: the recurrence is a chain of S dependent FMAs per
-// (b, w) column, and at the serving shapes there are only B*W columns
-// (16,384 at B 4, W 4096) for 132 SMs.
+// Bound on the card: bytes.  One FMA per element against 12 bytes moved
+// (read a and b once, write h once), so the least time is
+// 4 * (3 * B*S*W + 2 * B*W) bytes over the HBM rate.  This kernel reads a
+// and b from device memory once and writes h once, in one launch; no
+// intermediate h goes to device memory.
 //
-// Design: on the TPU the time axis was the sequential grid dimension and
-// the carry lived in VMEM scratch between time blocks.  Here one thread owns
-// one (b, w) column and walks t = 0..S-1 with the carry in a register; the
-// threads of a warp take consecutive w, so every load of a[t] and b[t] and
-// every store of h[t] is one coalesced 128-byte line per warp.  The loads do
-// not depend on h, so they are issued kUnroll steps ahead of the FMAs that
-// consume them (two register buffers: the next group is in flight while the
-// current one is folded in), which overlaps memory latency with the chain.
-// Ragged S and W are masked in the kernel; nothing is padded on the host.
+// What held the previous design back: one thread owned one (b, w) column
+// and walked all of S, loads issued 8 steps ahead in registers.  At B 4,
+// W 4096 that is 16,384 threads, 16,384 * 8 steps * 2 loads * 4 B = 1 MiB
+// in flight; by Little's law HBM at 3.35 TB/s and 0.6-0.8 us of latency
+// needs 2-2.7 MB, so it ran at about half the rate (46 % of the bound).  At
+// B 1 the grid was 64 blocks of 64 threads and 256 KiB in flight.
 //
-// A chunked two-pass scan over S (a local scan per S-chunk in parallel, then
-// a carry fix-up, the blocking the reference's _lru_scan uses at chunk 256)
-// would put B*W*S/chunk threads to work instead of B*W; that redesign is
-// left to a later change.
+// Design: split S into chunks of kL = 64 steps so the card fills at every
+// shape (2,048 blocks at B 4, S 512 and at B 1, S 2048; 512 at B 1, S 512).
+//   - One block owns one (b, 64-column W tile, 64-step chunk) tile: 64
+//     threads, one column each.  Blocks take their logical index from an
+//     atomic ticket in chunk-major order, so every chunk to the left of a
+//     block's chunk started before it (forward progress for the look-back
+//     below); the grid is flat, so B has no 65,535 limit.
+//   - Staging.  The chunk's a and b tiles (2 x 16 KB) land in shared memory
+//     by TMA, through 3-d tensor maps over the (W, S, B) view, in kBoxes
+//     boxes of kBoxS steps, each completing on its own mbarrier, so pass 1
+//     starts on the first box while the rest land.  A ragged S tile reads
+//     TMA's zeros, never the next sequence; ragged W is zero-filled.  Six
+//     blocks share an SM (33 KB each): 192 KB of loads in flight per SM and
+//     about 25 MB on the card, ten times Little's requirement, without
+//     spending registers on it.  TMA needs 16-byte strides and bases: for
+//     W % 4 != 0 or an unaligned base the same kernel stages with 4-byte
+//     `cp.async` (zero-filling what lies outside) into the same buffers,
+//     each thread arriving on the same mbarriers (`.noinc`); the launch
+//     function chooses.  A warp reads a[t][32 consecutive columns]: no
+//     bank conflicts.
+//   - Pass 1 over shared memory composes each column's chunk aggregate,
+//     (A, Bc) = (prod a_t, h at the chunk's end from 0).
+//   - Decoupled look-back, per column: the chunk publishes its aggregate as
+//     soon as pass 1 ends, and its inclusive carry (h at its end) once it
+//     has its carry-in.  It walks left composing aggregates until it finds
+//     an inclusive carry, so the waits never form a serial chain.  Chunk
+//     0's carry-in is h0 (or 0).
+//   - Pass 2 runs the recurrence from the carry over the same shared-memory
+//     tile, writing h over the b tile, and one thread sends it out by TMA
+//     stores through a third tensor map (clipped at ragged edges); the
+//     cp.async route stores h from registers instead, each warp one
+//     128-byte line per step.  The thread that holds t = S - 1 also writes
+//     h_last from the register that gave h there.  (Stores from registers
+//     in the TMA route too were slower on the H100.)
+// Look-back words.  Each published value is one 64-bit word, (epoch << 32)
+// | the float's bits, stored with st.relaxed.gpu and polled with
+// ld.relaxed.gpu: a 64-bit access is single-copy atomic, so a word whose
+// epoch is this launch's holds this launch's value, and no flag, fence or
+// release/acquire pair orders it (a flag per warp behind __threadfence,
+// st.release and ld.acquire was slower on the H100).
+// The wrapper allocates the scratch (sized by rglru_scan_scratch_bytes)
+// zeroed once per stream and passes a new epoch on every launch, so a word
+// of an earlier launch never reads as ready and nothing is cleared between
+// launches; the block that draws the last ticket puts the ticket counter
+// back to 0 for the next launch on the stream.  A wait that lasts over
+// about a second traps instead of hanging the card.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#if CUDART_VERSION < 12050
+#error "rglru_scan needs CUDA 12.5+ (cudaGetDriverEntryPointByVersion)"
+#endif
 
 namespace {
 
-constexpr int kThreads = 64;   // small blocks spread B*W columns over more SMs
-constexpr int kUnroll = 8;     // time steps loaded ahead of the chain
+constexpr int kCols = 64;            // W columns per block, one a thread
+constexpr int kThreads = kCols;
+constexpr int kL = 64;               // time steps per chunk
+constexpr int kBoxS = 16;            // time steps per box (one mbarrier)
+constexpr int kBoxes = kL / kBoxS;
+constexpr uint32_t kBoxBytes = kBoxS * kCols * 4;
+constexpr unsigned kSpinLimit = 1u << 25;   // polls before a wait traps
 
+struct Params {
+  CUtensorMap ta, tb, th;      // (W, S, B) views of a, b and h (TMA route)
+  const float* a;
+  const float* b;
+  const float* h0;             // null: zeros
+  float* h;
+  float* h_last;
+  unsigned* counter;           // the ticket counter
+  // [B][n_chunks][n_wtiles * 64] words (epoch << 32) | value bits: the
+  // aggregate's A and Bc, and h at the chunk's end
+  unsigned long long* agg_a;
+  unsigned long long* agg_b;
+  unsigned long long* incl;
+  long long S, W;
+  int B, n_chunks, n_wtiles;
+  unsigned n_blocks, epoch;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n\t}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// ---- staging
+// TMA: one 3-d box (c0 = column, c1 = step, c2 = batch row)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// TMA store of one 3-d box from shared memory (clipped at the edges)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(src)
+      : "memory");
+}
+
+// 4-byte cp.async; src_bytes 0 fills the word with zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// the barrier's pending count takes one arrival when this thread's earlier
+// cp.async copies have landed (the count was set for it at init)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// ---- look-back words: a value and the epoch of the launch that wrote it,
+// stored and loaded as one 64-bit word (single-copy atomic), so a word is
+// valid on its own and needs no flag or fence
+__device__ __forceinline__ void put(unsigned long long* p, float v,
+                                    unsigned epoch) {
+  const unsigned long long w =
+      ((unsigned long long)epoch << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n"
+               :: "l"(p), "l"(w) : "memory");
+}
+
+// the word's value if this launch (`epoch`) wrote it
+__device__ __forceinline__ bool get(const unsigned long long* p,
+                                    unsigned epoch, float& v) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n"
+               : "=l"(w) : "l"(p) : "memory");
+  v = __uint_as_float((unsigned)w);
+  return (unsigned)(w >> 32) == epoch;
+}
+
+template <bool kTma>
 __global__ void __launch_bounds__(kThreads)
-rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  const float* __restrict__ h0, float* __restrict__ h,
-                  float* __restrict__ h_last, long long S, long long W) {
-  const long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (w >= W) return;
-  const long long row = blockIdx.y;
-  const long long base = row * S * W + w;
-  const float* pa = a + base;
-  const float* pb = b + base;
-  float* ph = h + base;
+rglru_scan_kernel(const __grid_constant__ Params p) {
+  __shared__ alignas(128) float sA[kL * kCols];
+  __shared__ alignas(128) float sB[kL * kCols];
+  __shared__ alignas(8) uint64_t bars[kBoxes];
+  __shared__ unsigned s_ticket;
 
-  float carry = h0 != nullptr ? h0[row * W + w] : 0.0f;
-
-  float na[kUnroll], nb[kUnroll];
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    na[u] = 0.0f;
-    nb[u] = 0.0f;
-    if (u < S) {
-      na[u] = __ldg(pa + (long long)u * W);
-      nb[u] = __ldg(pb + (long long)u * W);
-    }
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    const unsigned t = atomicAdd(p.counter, 1u);
+    if (t >= p.n_blocks) __trap();            // the counter was not reset
+    if (t == p.n_blocks - 1) atomicExch(p.counter, 0u);
+    s_ticket = t;
+    for (int i = 0; i < kBoxes; ++i)
+      mbar_init(smem_u32(&bars[i]), kTma ? 1 : kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (long long t0 = 0; t0 < S; t0 += kUnroll) {
-    float ca[kUnroll], cb[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      ca[u] = na[u];
-      cb[u] = nb[u];
-    }
-    const long long t1 = t0 + kUnroll;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (t1 + u < S) {
-        na[u] = __ldg(pa + (t1 + u) * W);
-        nb[u] = __ldg(pb + (t1 + u) * W);
+  __syncthreads();
+
+  // logical tile, chunk-major: every block of chunk c - 1 drew its ticket
+  // before any block of chunk c
+  const unsigned ticket = s_ticket;
+  const unsigned per_chunk = (unsigned)p.B * (unsigned)p.n_wtiles;
+  const int c = (int)(ticket / per_chunk);
+  const int rem = (int)(ticket % per_chunk);
+  const int bb = rem / p.n_wtiles;
+  const int wt = rem % p.n_wtiles;
+  const int t0 = c * kL;
+  const long long col = (long long)wt * kCols + tid;
+  const bool col_ok = col < p.W;
+
+  if (kTma) {
+    if (tid == 0) {
+      for (int i = 0; i < kBoxes; ++i) {
+        const uint32_t bar = smem_u32(&bars[i]);
+        mbar_expect_tx(bar, 2 * kBoxBytes);
+        tma_load(smem_u32(sA + i * kBoxS * kCols), &p.ta, bar, wt * kCols,
+                 t0 + i * kBoxS, bb);
+        tma_load(smem_u32(sB + i * kBoxS * kCols), &p.tb, bar, wt * kCols,
+                 t0 + i * kBoxS, bb);
       }
     }
+  } else {
+    const long long base = (long long)bb * p.S * p.W + col;
+    for (int i = 0; i < kBoxes; ++i) {
+#pragma unroll 4
+      for (int r = 0; r < kBoxS; ++r) {
+        const int t = t0 + i * kBoxS + r;
+        const bool ok = col_ok && t < p.S;
+        const long long off = ok ? base + (long long)t * p.W : 0;
+        const int s = (i * kBoxS + r) * kCols + tid;
+        cp_async4(smem_u32(sA + s), p.a + off, ok ? 4u : 0u);
+        cp_async4(smem_u32(sB + s), p.b + off, ok ? 4u : 0u);
+      }
+      cp_async_arrive(smem_u32(&bars[i]));
+    }
+  }
+
+  // ---- pass 1: the chunk's aggregate of this column, box by box
+  float A = 1.0f, Bc = 0.0f;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (t0 + u < S) {
-        carry = fmaf(ca[u], carry, cb[u]);
-        ph[(t0 + u) * W] = carry;
+  for (int i = 0; i < kBoxes; ++i) {
+    mbar_wait(smem_u32(&bars[i]), 0);
+#pragma unroll
+    for (int r = 0; r < kBoxS; ++r) {
+      const int s = (i * kBoxS + r) * kCols + tid;
+      const float at = sA[s];
+      Bc = fmaf(at, Bc, sB[s]);
+      A *= at;
+    }
+  }
+
+  // ---- carry-in by decoupled look-back, each thread for its column
+  const bool last = c == p.n_chunks - 1;
+  const long long wp = (long long)p.n_wtiles * kCols;     // padded width
+  const long long slot = ((long long)bb * p.n_chunks + c) * wp + col;
+  float carry = 0.0f;
+  if (c == 0) {
+    if (p.h0 != nullptr && col_ok) carry = p.h0[(long long)bb * p.W + col];
+  } else {
+    if (!last) {
+      put(&p.agg_a[slot], A, p.epoch);
+      put(&p.agg_b[slot], Bc, p.epoch);
+    }
+    // compose the aggregates of chunks j + 1 .. c - 1: h_end(c - 1) =
+    // PA * h_end(j) + PB
+    float PA = 1.0f, PB = 0.0f;
+    unsigned polls = 0;
+    for (long long j = slot - wp;;) {
+      float v, ga, gb;
+      if (get(&p.incl[j], p.epoch, v)) {
+        carry = fmaf(PA, v, PB);
+        break;
+      }
+      if (get(&p.agg_a[j], p.epoch, ga) && get(&p.agg_b[j], p.epoch, gb)) {
+        PB = fmaf(PA, gb, PB);
+        PA *= ga;
+        j -= wp;
+        continue;
+      }
+      if (++polls == kSpinLimit) __trap();
+      __nanosleep(32);
+    }
+  }
+  if (!last) put(&p.incl[slot], fmaf(A, carry, Bc), p.epoch);
+
+  // ---- pass 2: the recurrence from the carry, h stored per step
+  const long long row = (long long)bb * p.S;
+  const int t_end = (int)min((long long)kL, p.S - t0);   // valid steps
+  float hv = carry;
+  if (kTma) {
+    // h over b in shared memory, then out by TMA stores
+#pragma unroll
+    for (int s = 0; s < kL; ++s) {
+      hv = fmaf(sA[s * kCols + tid], hv, sB[s * kCols + tid]);
+      sB[s * kCols + tid] = hv;
+      if (last && col_ok && s == t_end - 1)
+        p.h_last[(long long)bb * p.W + col] = hv;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0) {
+      for (int i = 0; i < kBoxes && i * kBoxS < t_end; ++i)
+        tma_store(&p.th, smem_u32(sB + i * kBoxS * kCols), wt * kCols,
+                  t0 + i * kBoxS, bb);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < kL; ++s) {
+      hv = fmaf(sA[s * kCols + tid], hv, sB[s * kCols + tid]);
+      if (col_ok && s < t_end) {
+        p.h[(row + t0 + s) * p.W + col] = hv;
+        if (last && s == t_end - 1) p.h_last[(long long)bb * p.W + col] = hv;
       }
     }
   }
-  h_last[row * W + w] = carry;
+}
+
+// ---- host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A tensor map over a contiguous [B, S, W] f32 tensor as the 3-d (W, S, B)
+// view, in (64 columns, kBoxS steps, 1 row) boxes; what lies outside reads
+// as zeros.
+int make_map(CUtensorMap* map, const void* ptr, long long B, long long S,
+             long long W) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInvalidValue;
+  cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)S, (cuuint64_t)B};
+  cuuint64_t strides[2] = {(cuuint64_t)(W * 4), (cuuint64_t)(S * W * 4)};
+  cuuint32_t box[3] = {(cuuint32_t)kCols, (cuuint32_t)kBoxS, 1};
+  cuuint32_t unit[3] = {1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                      const_cast<void*>(ptr), dims, strides, box, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+struct Layout {
+  long long agg_a, agg_b, incl, bytes;   // byte offsets and total
+};
+
+long long round_up(long long x) { return (x + 255) / 256 * 256; }
+
+Layout layout(long long B, long long S, long long W) {
+  Layout l;
+  const long long words =
+      B * ((S + kL - 1) / kL) * ((W + kCols - 1) / kCols * kCols);
+  l.agg_a = 256;                                   // the counter comes first
+  l.agg_b = l.agg_a + round_up(words * 8);
+  l.incl = l.agg_b + round_up(words * 8);
+  l.bytes = l.incl + round_up(words * 8);
+  return l;
 }
 
 }  // namespace
 
+// Bytes of scratch a launch at (B, S, W) needs.  The wrapper allocates it
+// zeroed once and passes it to every launch on one stream with a new epoch.
+extern "C" long long rglru_scan_scratch_bytes(long long B, long long S,
+                                              long long W) {
+  return layout(B, S, W).bytes;
+}
+
 // C interface (loaded with ctypes).  a, b, h: B*S*W f32, contiguous
-// [B, S, W]; h0: B*W f32 or null (zeros); h_last: B*W f32.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// [B, S, W]; h0: B*W f32 or null (zeros); h_last: B*W f32; scratch: at
+// least rglru_scan_scratch_bytes(B, S, W) bytes, zeroed before its first
+// launch and used by one stream; epoch: 1 <= epoch < 2^31, new on every
+// launch with this scratch.  TMA moves a, b and h when W % 4 == 0 and the
+// three bases are 16-byte aligned; 4-byte cp.async and stores from
+// registers otherwise.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a scratch, epoch or grid it cannot take.
 extern "C" int rglru_scan_launch(const void* a, const void* b, const void* h0,
                                  void* h, void* h_last, long long B,
-                                 long long S, long long W, void* stream) {
+                                 long long S, long long W, void* scratch,
+                                 long long scratch_bytes, unsigned epoch,
+                                 void* stream) {
   if (B <= 0 || S <= 0 || W <= 0) return 0;
-  if (B > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((unsigned)((W + kThreads - 1) / kThreads), (unsigned)B);
-  rglru_scan_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(h0), static_cast<float*>(h),
-      static_cast<float*>(h_last), S, W);
+  const Layout l = layout(B, S, W);
+  Params p = {};
+  p.n_chunks = (int)((S + kL - 1) / kL);
+  p.n_wtiles = (int)((W + kCols - 1) / kCols);
+  const long long n_blocks = (long long)p.n_chunks * B * p.n_wtiles;
+  if (scratch == nullptr || scratch_bytes < l.bytes || epoch == 0
+      || epoch >= (1u << 31) || n_blocks >= (1ll << 31) || S >= (1ll << 31)
+      || W >= (1ll << 31) || B >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(b);
+  p.h0 = static_cast<const float*>(h0);
+  p.h = static_cast<float*>(h);
+  p.h_last = static_cast<float*>(h_last);
+  char* s = static_cast<char*>(scratch);
+  p.counter = reinterpret_cast<unsigned*>(s);
+  p.agg_a = reinterpret_cast<unsigned long long*>(s + l.agg_a);
+  p.agg_b = reinterpret_cast<unsigned long long*>(s + l.agg_b);
+  p.incl = reinterpret_cast<unsigned long long*>(s + l.incl);
+  p.S = S;
+  p.W = W;
+  p.B = (int)B;
+  p.n_blocks = (unsigned)n_blocks;
+  p.epoch = epoch;
+  const bool tma = W % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(b) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(h) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tma) {
+    int err = make_map(&p.ta, a, B, S, W);
+    if (!err) err = make_map(&p.tb, b, B, S, W);
+    if (!err) err = make_map(&p.th, h, B, S, W);
+    if (err) return err;
+    rglru_scan_kernel<true><<<(unsigned)n_blocks, kThreads, 0, st>>>(p);
+  } else {
+    rglru_scan_kernel<false><<<(unsigned)n_blocks, kThreads, 0, st>>>(p);
+  }
   return (int)cudaGetLastError();
 }

@@ -3,6 +3,12 @@
 A CPU tensor takes the plain version (``ref.py``).  A CUDA tensor launches
 the hand-written kernel (``kernel.cu``) or raises; there is no fallback.
 ``launches`` counts the kernel's launches (callers may reset it to 0).
+
+The kernel chains its S-chunks by a decoupled look-back through scratch
+that this module keeps, one zeroed buffer per (card, stream), grown as
+shapes need: a ticket counter the kernel puts back to 0 itself, and
+look-back words tagged with an epoch that is new on every launch, so
+nothing is cleared between launches.
 """
 
 from __future__ import annotations
@@ -17,18 +23,39 @@ from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 #: launches of the CUDA kernel since the count was last reset
 launches = 0
 
-_fn = None
+#: epochs run 1 .. EPOCHS - 1; then the scratch is zeroed anew
+EPOCHS = 1 << 31
+
+_fns = None
+# (device index, stream handle) -> [scratch uint8 tensor, last epoch]
+_scratch: dict[tuple[int, int], list] = {}
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.library("rglru_scan").rglru_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
-            ctypes.c_void_p]
+    global _fns
+    if _fns is None:
+        lib = build.library("rglru_scan")
+        size = lib.rglru_scan_scratch_bytes
+        size.argtypes = [ctypes.c_longlong] * 3
+        size.restype = ctypes.c_longlong
+        fn = lib.rglru_scan_launch
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
+                       + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns = size, fn
+    return _fns
+
+
+def _scratch_for(nbytes: int, device: torch.device, stream: int):
+    """The stream's scratch of at least ``nbytes`` and a new epoch."""
+    key = (device.index, stream)
+    entry = _scratch.get(key)
+    if entry is None or entry[0].numel() < nbytes or entry[1] + 1 >= EPOCHS:
+        entry = [torch.zeros(nbytes, dtype=torch.uint8, device=device), 0]
+        _scratch[key] = entry
+    entry[1] += 1
+    return entry[0], entry[1]
 
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
@@ -56,17 +83,18 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in ins):
         raise ValueError("rglru_scan: the kernel takes contiguous float32 "
                          "a, b and h0")
-    if B > 65535:
-        raise ValueError(f"rglru_scan: the kernel takes B <= 65535, got {B}")
     h = torch.empty_like(a)
     h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
     if h.numel() == 0:
         return h, h_last
     with torch.cuda.device(a.device):
-        err = _kernel()(a.data_ptr(), b.data_ptr(),
-                        None if h0 is None else h0.data_ptr(),
-                        h.data_ptr(), h_last.data_ptr(), B, S, W,
-                        torch.cuda.current_stream().cuda_stream)
+        size, fn = _kernel()
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch, epoch = _scratch_for(size(B, S, W), a.device, stream)
+        err = fn(a.data_ptr(), b.data_ptr(),
+                 None if h0 is None else h0.data_ptr(),
+                 h.data_ptr(), h_last.data_ptr(), B, S, W,
+                 scratch.data_ptr(), scratch.numel(), epoch, stream)
     global launches
     launches += 1
     build.check(err, "rglru_scan")

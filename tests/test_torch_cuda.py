@@ -116,38 +116,84 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
         attn_ops.flash_attention(qb, wide[..., :64], wide[..., :64])
 
 
-@pytest.mark.parametrize("B,S,W,with_h0,gates", [
-    (4, 512, 4096, True, "model"),      # the serving path's prefill shape
-    (1, 2048, 4096, True, "model"),
-    (1, 1000, 4096, False, "test"),     # ragged S, h0 = None
-    (2, 300, 1000, True, "test"),       # ragged W
-    (3, 5, 33, True, "test"),           # S shorter than the prefetch depth
-])
-def test_rglru_scan_kernel_within_tolerance(cuda, B, S, W, with_h0, gates):
-    """|kernel - plain| <= 1e-5 + 1e-5 |plain| (tests/test_kernels.py's f32
-    tolerance: the kernel runs the sequential FMA chain, the plain version a
-    doubling scan); gates from the model's range (a = exp(-8 softplus(lam)
-    r)) or from the reference test's (a in [0.8, 0.999]); one launch."""
-    g = torch.Generator(device=cuda).manual_seed(B * S * W)
+def _scan_inputs(device, B, S, W, with_h0, gates, seed):
+    """Gates from the model's range (a = exp(-8 softplus(lam) r)) or from
+    the reference test's (a in [0.8, 0.999])."""
+    g = torch.Generator(device=device).manual_seed(seed)
     if gates == "model":
-        lam = torch.randn(W, generator=g, device=cuda)
-        r = torch.rand((B, S, W), generator=g, device=cuda)
+        lam = torch.randn(W, generator=g, device=device)
+        r = torch.rand((B, S, W), generator=g, device=device)
         a = torch.exp(-8.0 * torch.logaddexp(lam, torch.zeros_like(lam)) * r)
         b = torch.sqrt(1.0 - a * a) * torch.randn((B, S, W), generator=g,
-                                                  device=cuda)
+                                                  device=device)
     else:
-        a = 0.8 + 0.199 * torch.rand((B, S, W), generator=g, device=cuda)
-        b = torch.randn((B, S, W), generator=g, device=cuda)
-    h0 = torch.randn((B, W), generator=g, device=cuda) if with_h0 else None
-    scan_ops.launches = 0
-    h, h_last = scan_ops.lru_scan(a, b, h0)
-    torch.cuda.synchronize()
-    assert scan_ops.launches == 1
+        a = 0.8 + 0.199 * torch.rand((B, S, W), generator=g, device=device)
+        b = torch.randn((B, S, W), generator=g, device=device)
+    h0 = torch.randn((B, W), generator=g, device=device) if with_h0 else None
+    return a, b, h0
+
+
+def _assert_scan_close(a, b, h0, h, h_last):
+    """|kernel - plain| <= 1e-5 + 1e-5 |plain| (tests/test_kernels.py's f32
+    tolerance: the kernel composes chunk aggregates and runs FMA chains,
+    the plain version a doubling scan); h_last is h[:, -1] bit for bit."""
     want, want_last = rglru_scan_ref(a, b, h0)
     assert bool(((h - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
     assert bool(((h_last - want_last).abs()
                  <= 1e-5 + 1e-5 * want_last.abs()).all())
     assert torch.equal(h_last, h[:, -1])
+
+
+# the kernel's chunk is 64 steps and its W tile 64 columns; W % 4 != 0 or
+# an unaligned base stages by cp.async, any other call by TMA
+@pytest.mark.parametrize("B,S,W,with_h0,gates,unaligned", [
+    (4, 512, 4096, True, "model", False),   # the serving path's prefill
+    (1, 2048, 4096, True, "model", False),
+    (1, 1000, 4096, False, "test", False),  # ragged S, h0 = None
+    (2, 300, 1000, True, "test", False),    # ragged W
+    (3, 5, 33, True, "test", False),        # S shorter than a box; cp.async
+    (2, 1, 4096, True, "model", False),     # S = 1
+    (2, 64, 4096, True, "test", False),     # S = one chunk
+    (2, 65, 4096, True, "test", False),     # S = one chunk + 1
+    (1, 4096, 4096, True, "test", False),   # 64 chunks chained by look-back
+    (2, 130, 100, True, "test", False),     # W not a multiple of 64 (TMA)
+    (2, 200, 65, True, "test", False),      # W not a multiple of 64 (cp.async)
+    (3, 200, 4096, False, "model", False),  # h0 = None over several chunks
+    (2, 300, 4096, True, "model", True),    # bases 4 bytes past 16 (cp.async)
+    (70000, 3, 8, True, "test", False),     # a flat grid: B past 65,535
+])
+def test_rglru_scan_kernel_within_tolerance(cuda, B, S, W, with_h0, gates,
+                                            unaligned):
+    """Within tolerance of the plain version; one launch.  ``unaligned``
+    passes a and b as contiguous views that start 4 bytes past a 16-byte
+    boundary, which TMA cannot take."""
+    a, b, h0 = _scan_inputs(cuda, B, S, W, with_h0, gates, B * S * W)
+    ka, kb = a, b
+    if unaligned:
+        ka, kb = (torch.empty(t.numel() + 1, device=cuda)[1:].view_as(t)
+                  .copy_(t) for t in (a, b))
+        assert ka.data_ptr() % 16 and ka.is_contiguous()
+    scan_ops.launches = 0
+    h, h_last = scan_ops.lru_scan(ka, kb, h0)
+    torch.cuda.synchronize()
+    assert scan_ops.launches == 1
+    _assert_scan_close(a, b, h0, h, h_last)
+
+
+def test_rglru_scan_kernel_back_to_back_calls(cuda):
+    """Calls one after another on one stream, of one shape and of others,
+    reuse the look-back scratch: the ticket counter and the look-back words
+    must be fresh for each launch."""
+    shapes = [(4, 512, 4096), (4, 512, 4096), (1, 2048, 4096), (2, 65, 100),
+              (4, 512, 4096)]
+    ins = [_scan_inputs(cuda, B, S, W, True, "test", i)
+           for i, (B, S, W) in enumerate(shapes)]
+    scan_ops.launches = 0
+    outs = [scan_ops.lru_scan(a, b, h0) for a, b, h0 in ins]
+    torch.cuda.synchronize()
+    assert scan_ops.launches == len(shapes)
+    for (a, b, h0), (h, h_last) in zip(ins, outs):
+        _assert_scan_close(a, b, h0, h, h_last)
 
 
 def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):

@@ -135,6 +135,26 @@ def test_rglru_scan_wrapper_checks_and_never_launches_on_cpu():
         scan_ops.lru_scan(a[:, :0], a[:, :0])
 
 
+def test_rglru_scan_scratch_gets_a_new_epoch_per_launch(monkeypatch):
+    """The kernel's look-back scratch: one zeroed buffer per (card, stream),
+    grown when a shape needs more, and a new epoch on every launch; when
+    the epochs run out the buffer is zeroed anew and they restart at 1."""
+    monkeypatch.setattr(scan_ops, "_scratch", {})
+    cpu = torch.device("cpu")
+    s1, e1 = scan_ops._scratch_for(64, cpu, 7)
+    s2, e2 = scan_ops._scratch_for(32, cpu, 7)
+    assert s2 is s1 and (e1, e2) == (1, 2) and not s1.any()
+    other, e = scan_ops._scratch_for(32, cpu, 8)    # another stream
+    assert other is not s1 and e == 1
+    big, e3 = scan_ops._scratch_for(128, cpu, 7)     # grown, zeroed anew
+    assert big.numel() == 128 and e3 == 1
+    scan_ops._scratch[(None, 7)][1] = scan_ops.EPOCHS - 2
+    _, last = scan_ops._scratch_for(8, cpu, 7)
+    assert last == scan_ops.EPOCHS - 1
+    fresh, e4 = scan_ops._scratch_for(8, cpu, 7)
+    assert e4 == 1 and fresh is not big and not fresh.any()
+
+
 @pytest.mark.parametrize("S", [300, 40])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_lru_scan_layer_matches_reference(S, with_h0):
