@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``repro_torch``) on one card.
 
-Drives the port's two serving paths: smollm-135m at full width, restored
-N-to-M, and recurrentgemma-9b at full width and full depth.
+Drives the port's two serving paths, smollm-135m at full width, restored
+N-to-M, and recurrentgemma-9b at full width and full depth, then its
+training path: smollm-135m trained on the card, killed, and resumed from
+its N-to-M checkpoint.
 
   device   the card's name and power limit (nvidia-smi);
   build    the hand-written kernels, compiled from this checkout's sources;
@@ -22,7 +24,15 @@ N-to-M, and recurrentgemma-9b at full width and full depth.
            4-to-1 onto the card bit for bit; decoding from the restored state
            gives the same tokens;
   hybrid_consistency  decode-step logits against one prefill of the prompt
-           plus the tokens generated so far.
+           plus the tokens generated so far;
+  train    full smollm-135m (B 4, S 2048) trained through the TorchTrainer in
+           deterministic mode, its attention forward on the flash kernel
+           under autograd (dq, dk, dv first checked against autograd
+           through the plain blocked path): run A takes 6 steps straight;
+           run B saves every 2 steps through the async checkpointer
+           (ckpt_pack packs each save) and is preempted at step 5; run C, a
+           fresh trainer, restores the last committed step and runs to 6.
+           C must end in A's state bit for bit.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of a path that never launched fails the run.  Every phase
@@ -39,7 +49,9 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -96,6 +108,17 @@ CONSISTENCY_STEPS = (1, 16, 32)
 # against flash_attention_xla).  Measured on an H100 at 0.020-0.031 of the
 # largest logit for these inputs; the bound leaves 1.6x of that
 CONSISTENCY_RTOL = 0.05
+
+# the train phase: SmolLM's published context of 2,048 tokens at batch 4
+# (8,192 tokens a step), AdamW under warmup_cosine(3e-3, warmup 2, total 6)
+TRAIN_B, TRAIN_S = 4, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 2, 5
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 2
+# |vjp grad - plain grad| <= VJP_ATOL + VJP_RTOL * |plain grad|: both are
+# autograd through the same blocked bf16 path on the same (q, k, v, dO), so
+# they should agree bit for bit under deterministic algorithms; the bound is
+# the attention kernel's bf16 tolerance
+VJP_ATOL = VJP_RTOL = 2e-2
 
 
 def emit(obj) -> None:
@@ -760,6 +783,206 @@ def phase_hybrid_consistency(api, params, tokens, kept) -> dict:
     return line
 
 
+# ------------------------------------------------------------ train path
+def check_flash_vjp(cfg, device) -> dict:
+    """dq, dk, dv of the kernel's autograd Function against autograd through
+    the plain blocked ``flash_attention_xla`` at the train path's shape, on
+    the same upstream gradient; and against autograd through the plain f32
+    attention (reported, not held: bf16 against f32)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.layers import flash_attention_xla
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    shapes = [(TRAIN_B, TRAIN_S, cfg.num_heads, cfg.head_dim_)] + [
+        (TRAIN_B, TRAIN_S, cfg.num_kv_heads, cfg.head_dim_)] * 2
+    q, k, v, g = (torch.randn(s, generator=gen, device=device)
+                  .to(torch.bfloat16) for s in shapes + shapes[:1])
+    blocks = dict(block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+
+    def grads(fn, dtype=torch.bfloat16):
+        ts = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*ts), ts, g.to(dtype))
+
+    got = grads(lambda a, b, c: flash_attention_vjp(
+        a, b, c, True, 0, 0.0, cfg.attn_block_q, cfg.attn_block_k, 0))
+    want = grads(lambda a, b, c: flash_attention_xla(a, b, c, causal=True,
+                                                     **blocks))
+    exact = grads(lambda a, b, c: attention_ref(a, b, c, causal=True),
+                  torch.float32)
+    torch.cuda.synchronize()
+    line = {"shape": [TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.head_dim_], "blocks": blocks,
+            "tolerance": {"atol": VJP_ATOL, "rtol": VJP_RTOL}}
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, exact):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        line[name] = {
+            "max_abs_err": float(err.max()),
+            "outside_tol": int((err > VJP_ATOL + VJP_RTOL * b.abs()).sum()),
+            "bit_equal": bool(torch.equal(a, b)),
+            "max_abs_err_vs_f32": float((a - c).abs().max()),
+            "max_abs_f32": float(c.abs().max())}
+        if line[name]["outside_tol"] or not torch.isfinite(a).all():
+            raise AssertionError(f"flash_attention_vjp {name} outside "
+                                 f"tolerance: {line[name]}")
+    return line
+
+
+def phase_train(cfg, device, store_dirs) -> dict:
+    """Runs A, B and C (see the module docstring) through the TorchTrainer,
+    with the launch counts at 0 just before each run and read just after."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.device import use_deterministic_algorithms
+    from repro_torch.kernels.ckpt_pack import ops as pack_ops
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.models.api import build_model
+    from repro_torch.train import (AdamW, SimulatedPreemption, SyntheticLM,
+                                   TorchTrainer, TrainerConfig,
+                                   init_train_state, make_train_step,
+                                   warmup_cosine)
+
+    use_deterministic_algorithms()
+    api = build_model(cfg)
+    opt = AdamW()
+    step = make_train_step(
+        api, opt, functools.partial(warmup_cosine, base_lr=TRAIN_LR,
+                                    warmup=TRAIN_WARMUP, total=TRAIN_STEPS),
+        ShapeConfig("train", TRAIN_S, TRAIN_B, "train"))
+    step_seconds, step_fn = [], step.fn
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t0)
+        return out
+
+    step = dataclasses.replace(step, fn=timed_step)
+    data = SyntheticLM(cfg.vocab, TRAIN_S, TRAIN_B, seed=SEED)
+
+    def trainer(store_dir, ckpt_every):
+        return TorchTrainer(
+            step, data, TrainerConfig(store_dir, ckpt_every=ckpt_every,
+                                      log_every=1), device=device,
+            init_state_fn=lambda: init_train_state(
+                api, opt, torch.Generator(device=device).manual_seed(SEED)))
+
+    vjp = check_flash_vjp(cfg, device)
+    per_step = 2 * cfg.num_layers     # remat re-runs each layer's forward
+    launches = {"flash_attention": 0, "ckpt_pack": 0}
+
+    def counted(run, steps_run, saves):
+        """``run()`` with the counts at 0 just before and read just after;
+        the attention kernel must have launched ``per_step`` times a step
+        run, ckpt_pack on every save."""
+        pack_ops.launches = attn_ops.launches = 0
+        per_save = []
+        out = run(per_save)
+        got = {"flash_attention": attn_ops.launches,
+               "ckpt_pack": pack_ops.launches}
+        for k, n in got.items():
+            launches[k] += n
+        if got["flash_attention"] != per_step * steps_run:
+            raise AssertionError(f"flash_attention launched "
+                                 f"{got['flash_attention']} times in "
+                                 f"{steps_run} steps, not "
+                                 f"{per_step * steps_run}")
+        if len(per_save) != saves or not all(per_save):
+            raise AssertionError(f"ckpt_pack launches per save {per_save}, "
+                                 f"expected {saves} saves, each above 0")
+        return out, got, per_save
+
+    def counting_saves(t, per_save):
+        save = t._save
+
+        def wrapped(state, i):
+            before = pack_ops.launches
+            save(state, i)
+            per_save.append(pack_ops.launches - before)
+        t._save = wrapped
+        return t
+
+    # ---- A: TRAIN_STEPS straight, no checkpoint
+    torch.cuda.reset_peak_memory_stats()
+    ta = trainer(store_dirs[0], 0)
+    ra, a_counts, _ = counted(lambda ps: ta.run(TRAIN_STEPS), TRAIN_STEPS, 0)
+    peak = torch.cuda.max_memory_allocated()
+    a_times = list(step_seconds)
+    losses = [h["loss"] for h in ta.history]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"run A's loss is not finite and falling: "
+                             f"{losses}")
+
+    # ---- B: saves every TRAIN_CKPT_EVERY steps, preempted at TRAIN_FAIL_AT
+    tb = trainer(store_dirs[1], TRAIN_CKPT_EVERY)
+
+    def run_b(per_save):
+        counting_saves(tb, per_save)
+        try:
+            tb.run(TRAIN_STEPS, fail_at=TRAIN_FAIL_AT)
+        except SimulatedPreemption:
+            return None
+        raise AssertionError("run B was not preempted")
+
+    committed = TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    _, b_counts, b_saves = counted(run_b, TRAIN_FAIL_AT,
+                                   TRAIN_FAIL_AT // TRAIN_CKPT_EVERY)
+    writes = {j["label"]: j["seconds"] for j in tb._async.job_log}
+
+    # ---- C: a fresh trainer restores the last committed step, runs to the end
+    tc = trainer(store_dirs[1], TRAIN_CKPT_EVERY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, start = tc.restore_latest()
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    if start != committed:
+        raise AssertionError(f"restored step {start}, not {committed}")
+    rc, c_counts, c_saves = counted(
+        lambda ps: counting_saves(tc, ps).run(TRAIN_STEPS, start_state=state,
+                                              start_step=start),
+        TRAIN_STEPS - start,
+        TRAIN_STEPS // TRAIN_CKPT_EVERY - start // TRAIN_CKPT_EVERY)
+    differ = [k for k in ra["state"]
+              if ra["state"][k].dtype != rc["state"][k].dtype
+              or not torch.equal(ra["state"][k].reshape(-1).view(torch.uint8),
+                                 rc["state"][k].reshape(-1).view(torch.uint8))]
+    if differ:
+        raise AssertionError(f"the resumed run's state differs from the "
+                             f"straight run's in {differ}")
+    resumed = {h["step"]: h["loss"] for h in tc.history}
+    straight = {h["step"]: h["loss"] for h in ta.history}
+    if any(resumed[s] != straight[s] for s in resumed):
+        raise AssertionError(f"resumed losses {resumed} != straight "
+                             f"{straight}")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in ra["state"].values())
+    median = float(np.median(a_times[1:]))
+    return {"phase": "train", "arch": cfg.arch, "layers": cfg.num_layers,
+            "params": sum(t.numel() for k, t in ra["state"].items()
+                          if k.startswith("params/")),
+            "state_bytes": state_bytes, "batch": TRAIN_B, "seq": TRAIN_S,
+            "attention_impl": cfg.attention_impl, "remat": cfg.remat,
+            "deterministic": torch.are_deterministic_algorithms_enabled(),
+            "vjp_check": vjp,
+            "losses": losses, "step_seconds_a": a_times,
+            "step_ms_median_2_to_6": median * 1e3,
+            "tokens_per_s": TRAIN_B * TRAIN_S / median,
+            "peak_memory_allocated": peak,
+            "saves": [{**s, "ckpt_pack_launches": n,
+                       "write_seconds": writes.get(f"state/s{s['step']}")}
+                      for s, n in zip(tb.save_log, b_saves)],
+            "restored_step": start, "restore_seconds": t_restore,
+            "restore_gib_per_s": state_bytes / 2**30 / t_restore,
+            "resumed_losses": resumed, "bit_exact_with_straight_run": True,
+            "launches": {"a": a_counts, "b": b_counts, "c": c_counts,
+                         "c_ckpt_pack_per_save": c_saves,
+                         "flash_attention_per_step": per_step},
+            "total_launches": launches}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not (ROOT / "repro_torch" / "__init__.py").exists():
@@ -771,6 +994,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # before the first cuBLAS call: the train phase runs in deterministic
+    # mode, which needs cuBLAS's fixed workspace
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.tensor_ckpt import balanced_chunk_partition
@@ -797,6 +1023,8 @@ def main(argv=None) -> int:
     scratch.mkdir(parents=True, exist_ok=True)
     store_dir = tempfile.mkdtemp(prefix="store_", dir=scratch)
     hybrid_store = tempfile.mkdtemp(prefix="store_", dir=scratch)
+    train_stores = [tempfile.mkdtemp(prefix="train_", dir=scratch)
+                    for _ in range(2)]
     try:
         with torch.inference_mode():
             params = api.init(torch.Generator(device=device).manual_seed(SEED))
@@ -854,11 +1082,20 @@ def main(argv=None) -> int:
                 raise AssertionError(f"a kernel of the hybrid path never "
                                      f"launched: {hybrid}")
             phase_hybrid_consistency(hapi, hparams, tokens, kept)
+            del hparams, kept, tokens
+            torch.cuda.empty_cache()
+
+        # ---- the train path, outside inference mode (autograd needs it)
+        train = phase_train(dataclasses.replace(cfg, remat=True), device,
+                            train_stores)
+        emit(train)
     finally:
-        shutil.rmtree(store_dir, ignore_errors=True)
-        shutil.rmtree(hybrid_store, ignore_errors=True)
-    launches = {"ckpt_pack": dense["ckpt_pack"] + hybrid["ckpt_pack"],
-                "flash_attention": dense["flash_attention"],
+        for d in [store_dir, hybrid_store] + train_stores:
+            shutil.rmtree(d, ignore_errors=True)
+    launches = {"ckpt_pack": dense["ckpt_pack"] + hybrid["ckpt_pack"]
+                + train["total_launches"]["ckpt_pack"],
+                "flash_attention": dense["flash_attention"]
+                + train["total_launches"]["flash_attention"],
                 "rglru_scan": hybrid["rglru_scan"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

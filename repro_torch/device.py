@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -12,3 +14,13 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError("no CUDA device is present; pass device='cpu' to "
                            "run the plain PyTorch versions on the CPU")
     return dev
+
+
+def use_deterministic_algorithms() -> None:
+    """Make runs on the card repeat bit for bit, as a train restart needs:
+    cuBLAS's fixed workspace (``CUBLAS_WORKSPACE_CONFIG``, which cuBLAS
+    reads when it first allocates one, so call this before the first
+    product on the card) and ``torch.use_deterministic_algorithms``, under
+    which an operation without a deterministic implementation raises."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)

@@ -8,7 +8,12 @@ may reset it to 0).  The kernel picks its own 64 x 64 tiles, so unlike the
 Pallas wrapper this one takes no block sizes.  k and v may be strided views
 (slices of one fused tensor, say): the kernel's tensor maps take any
 strides that are multiples of 8 elements over a contiguous head dim.
-Forward only: the backward comes with the training slice.
+
+``flash_attention_vjp`` makes it differentiable, as the reference's
+``flash_attention_vjp`` does: this forward, and a backward that recomputes
+the port's blocked ``models/layers.py::flash_attention_xla`` under autograd
+(no backward kernel: the reference has none either).  It keeps only
+(q, k, v) for the backward.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.layers import flash_attention_xla
 
 #: launches of the CUDA kernel since the count was last reset
 launches = 0
@@ -90,3 +96,33 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     launches += 1
     build.check(err, "flash_attention")
     return o
+
+
+class _FlashAttentionVjp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, block_q, block_k,
+                q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, softcap=softcap,
+                        block_q=block_q, block_k=block_k, q_offset=q_offset)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = flash_attention_xla(q, k, v, **ctx.args)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_vjp(q, k, v, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, block_q: int = 512,
+                        block_k: int = 512, q_offset: int = 0):
+    """``flash_attention`` under autograd: the kernel's forward (the plain
+    version on CPU tensors), and the gradient of the blocked
+    ``flash_attention_xla`` with ``block_q`` x ``block_k`` tiles, recomputed
+    from (q, k, v) in the backward pass."""
+    return _FlashAttentionVjp.apply(q, k, v, causal, window, softcap,
+                                    block_q, block_k, q_offset)

@@ -1,6 +1,7 @@
 """Common model interface of the port, the counterpart of the JAX package's
 ``models/api.py``: parameter specs with the reference's names, shapes and
-dtypes, and the serving functions over a flat ``dict[str, Tensor]``.
+dtypes, and the training loss and serving functions over a flat
+``dict[str, Tensor]``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ class TorchModelApi:
     prefill: Callable                # (params, batch, Smax) -> (logits, cache)
     decode_step: Callable            # (params, cache, batch) -> (logits, cache)
     cache_specs: Callable            # (batch, seq) -> {name: BatchSpec}
+    # (params, batch) -> (loss, metrics); None where training is not ported
+    loss: Callable | None = None
+    input_specs: Callable | None = None   # ShapeConfig -> {name: BatchSpec}
 
     def init(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
         """Random parameters on the generator's device: the reference's

@@ -14,6 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -65,7 +67,9 @@ def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
     absolute position of q[0].  Key blocks that are fully masked for a
     query block are skipped, by the reference's (padded-block) test.  As in
     the reference, QK^T accumulates in f32 and P is cast to v's dtype
-    before the PV product.
+    before the PV product.  Differentiable: the port's
+    ``flash_attention_vjp`` takes its backward from autograd through this
+    function, as the reference's does through its own.
     """
     B, Sq, Hq, hd = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -78,7 +82,7 @@ def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
     qg = q.reshape(B, Sq, Hkv, G, hd).permute(0, 2, 3, 1, 4).float()
     kh = k.permute(0, 2, 1, 3).float()                  # [B, Hkv, Sk, hd]
     vh = v.permute(0, 2, 1, 3)
-    out = torch.empty((B, Hkv, G, Sq, hd), dtype=q.dtype, device=dev)
+    blocks = []
     for q0 in range(0, Sq, block_q):
         q1 = min(q0 + block_q, Sq)
         first_q, last_q = q_offset + q0, q_offset + q0 + block_q - 1
@@ -111,8 +115,9 @@ def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
                 "bhgqk,bhkd->bhgqd", p.to(v.dtype).float(),
                 vh[:, :, k0:k1].float())
             m = m_new
-        out[:, :, :, q0:q1] = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+        blocks.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
     # [B, Hkv, G, Sq, hd] -> [B, Sq, Hq, hd]
+    out = torch.cat(blocks, dim=3)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd)
 
 
@@ -165,3 +170,38 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(B, 1, Hq, hd)
+
+
+# -------------------------------------------------------- chunked CE loss
+def chunked_softmax_xent(hidden, embed_t, targets, mask, *, chunk: int = 0,
+                         softcap: float = 0.0):
+    """Cross-entropy over a huge vocab without materialising [B, S, V].
+
+    hidden [B, S, D]; embed_t [D, V]; targets/mask [B, S].  Runs over S in
+    chunks; under autograd each chunk is checkpointed, so its f32 logits
+    live only inside the chunk (recomputed in the backward pass), as the
+    reference's ``jax.checkpoint`` body does.  Returns (sum loss, sum mask).
+    """
+    B, S, D = hidden.shape
+    if not chunk or chunk >= S:
+        chunk = S
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def body(h, t, m):
+        logits = _softcap(h.float() @ embed_t.float(), softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+        return ((lse - picked) * m).sum()
+
+    total = torch.zeros((), dtype=F32, device=hidden.device)
+    for i in range(n):
+        part = slice(i * chunk, (i + 1) * chunk)
+        xs = (hidden[:, part], targets[:, part], mask[:, part])
+        total = total + (checkpoint(body, *xs, use_reentrant=False)
+                         if torch.is_grad_enabled() else body(*xs))
+    return total, mask.sum()

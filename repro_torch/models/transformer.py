@@ -4,22 +4,31 @@ JAX package's ``models/transformer.py`` for the dense family.
 
 Parameters keep the reference's stacked ``[L, ...]`` layout; where the
 reference scans over layers, this runs a Python loop over the per-layer
-slices.  MoE FFNs, M-RoPE, embeddings input and the training loss are not
-ported yet.
+slices, and where it wraps a layer (or a group of layers) in
+``jax.checkpoint``, this uses ``torch.utils.checkpoint``.  MoE FFNs, M-RoPE
+and embeddings input are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.api import BatchSpec, ParamSpec, TorchModelApi
+from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
+from repro_torch.models.api import (
+    BatchSpec,
+    ParamSpec,
+    TorchModelApi,
+    token_batch_specs,
+)
 from repro_torch.models.layers import (
     apply_rope,
+    chunked_softmax_xent,
     decode_attention,
     flash_attention_xla,
     naive_attention,
@@ -65,10 +74,13 @@ def _layer_windows(cfg: ModelConfig) -> list[int]:
     return [cfg.local_window if k == "local" else 0 for k in cfg.layer_kinds()]
 
 
-def _layer_params(params, cfg: ModelConfig, i: int) -> dict[str, torch.Tensor]:
-    """Layer ``i``'s slice of the stacked per-layer parameters."""
+def _layer_params(params, cfg: ModelConfig) -> list[dict[str, torch.Tensor]]:
+    """Each layer's slices of the stacked per-layer parameters (one
+    ``unbind`` per array, so the backward pass stacks the layers' gradients
+    once)."""
     keys = _LAYER_KEYS + (["q_norm", "k_norm"] if cfg.qk_norm else [])
-    return {k: params[k][i] for k in keys}
+    per_key = {k: params[k].unbind(0) for k in keys}
+    return [{k: per_key[k][i] for k in keys} for i in range(cfg.num_layers)]
 
 
 # ------------------------------------------------------------ forward core
@@ -94,11 +106,12 @@ def _attention(cfg: ModelConfig, x, lp, sin, cos, *, window: int,
                               softcap=cfg.attn_softcap, q_offset=q_offset)
     elif (cfg.attention_impl == "pallas"
           and cfg.layer_pattern == "all_global"):
-        # the hand-written kernel (its plain version on CPU tensors); as in
-        # the reference it takes one static window, so it engages for
-        # uniform-window patterns only
-        out = flash_attention(q, k, v, causal=True, window=0,
-                              softcap=cfg.attn_softcap, q_offset=int(q_offset))
+        # the hand-written kernel (its plain version on CPU tensors) under
+        # autograd; as in the reference it takes one static window, so it
+        # engages for uniform-window patterns only
+        out = flash_attention_vjp(q, k, v, True, 0, cfg.attn_softcap,
+                                  cfg.attn_block_q, cfg.attn_block_k,
+                                  int(q_offset))
     else:
         out = flash_attention_xla(q, k, v, causal=True, window=window,
                                   softcap=cfg.attn_softcap,
@@ -119,15 +132,80 @@ def _embed_scale(cfg: ModelConfig, x):
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=F32).to(x.dtype)
 
 
+def _unembed(params):
+    """[D, V]: the reference unembeds through a bf16 copy of the table,
+    whatever the parameter dtype."""
+    w = params.get("unembed", params["embed"])
+    return w.to(torch.bfloat16).t()
+
+
 def _logits(params, cfg: ModelConfig, x):
     hidden = rms_norm(x, params["final_norm"])
-    w = params.get("unembed", params["embed"])
-    # the reference unembeds through a bf16 copy of the table, whatever
-    # the parameter dtype
-    logits = hidden[:, -1].float() @ w.to(torch.bfloat16).float().t()
+    logits = hidden[:, -1].float() @ _unembed(params).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def _embed_in(params, cfg: ModelConfig, batch):
+    """Token embeddings (scaled) and their positions [B, S].  The gather is
+    ``index_select``, whose backward on a card is deterministic under
+    ``torch.use_deterministic_algorithms`` (advanced indexing accumulates
+    repeated tokens' rows with atomics)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = torch.index_select(params["embed"], 0, tokens.reshape(-1).long())
+    x = _embed_scale(cfg, x.reshape(B, S, -1))
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+    return x, positions
+
+
+def _layer_spans(cfg: ModelConfig) -> list[tuple[int, int]]:
+    """[lo, hi) layer ranges checkpointed together: groups of
+    ``remat_group`` layers, then the non-dividing tail one layer each."""
+    G, L = max(1, cfg.remat_group), cfg.num_layers
+    if G > 1 and L >= G:
+        n = L // G * G
+        return ([(i, i + G) for i in range(0, n, G)]
+                + [(i, i + 1) for i in range(n, L)])
+    return [(i, i + 1) for i in range(L)]
+
+
+def forward_hidden(params, cfg: ModelConfig, x, sin, cos, *, q_offset=0):
+    """Run all layers; x [B, S, D] -> (final-normed hidden [B, S, D], aux
+    loss).  Under autograd with ``cfg.remat``, each span of
+    ``_layer_spans`` is checkpointed: its activations are recomputed in the
+    backward pass (``remat_group = G > 1`` keeps one carry per G layers)."""
+    windows = _layer_windows(cfg)
+    layers = _layer_params(params, cfg)
+
+    def run(x, lo, hi):
+        for i in range(lo, hi):
+            x, _ = _attention(cfg, x, layers[i], sin, cos, window=windows[i],
+                              q_offset=q_offset)
+            x = _ffn(cfg, x, layers[i])
+        return x
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lo, hi in _layer_spans(cfg):
+        x = (checkpoint(run, x, lo, hi, use_reentrant=False) if remat
+             else run(x, lo, hi))
+    aux = torch.zeros((), dtype=F32, device=x.device)   # dense FFNs: no aux
+    return rms_norm(x, params["final_norm"]), aux
+
+
+# -------------------------------------------------------------------- loss
+def loss_fn(params, cfg: ModelConfig, batch):
+    x, positions = _embed_in(params, cfg, batch)
+    sin, cos = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    hidden, aux = forward_hidden(params, cfg, x, sin, cos)
+    total, count = chunked_softmax_xent(
+        hidden, _unembed(params), batch["targets"], batch["mask"],
+        chunk=cfg.vocab_chunk or min(512, hidden.shape[1]),
+        softcap=cfg.logit_softcap)
+    xent = total / torch.clamp(count, min=1.0)
+    return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
 
 # ---------------------------------------------------------------- serving
@@ -143,19 +221,18 @@ def cache_specs(cfg: ModelConfig, B: int, Smax: int) -> dict[str, BatchSpec]:
 def prefill(params, cfg: ModelConfig, batch, Smax: int | None = None):
     """Full-sequence forward; returns (last-token logits [B, V] f32, filled
     cache).  ``batch["tokens"]`` is [B, S] on the parameters' device."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    B, S = batch["tokens"].shape
     Smax = Smax or S
     dev = params["embed"].device
     dtype = getattr(torch, cfg.dtype)
-    x = _embed_scale(cfg, params["embed"][tokens.long()])
-    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    x, positions = _embed_in(params, cfg, batch)
     sin, cos = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
     shape = (cfg.num_layers, B, Smax, cfg.num_kv_heads, cfg.head_dim_)
     ks = torch.zeros(shape, dtype=dtype, device=dev)
     vs = torch.zeros(shape, dtype=dtype, device=dev)
+    layers = _layer_params(params, cfg)
     for i, window in enumerate(_layer_windows(cfg)):
-        lp = _layer_params(params, cfg, i)
+        lp = layers[i]
         x, (k, v) = _attention(cfg, x, lp, sin, cos, window=window)
         x = _ffn(cfg, x, lp)
         ks[i, :, :S] = k
@@ -181,8 +258,9 @@ def decode_step(params, cfg: ModelConfig, cache, batch):
     length = cache["length"]
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)
+    layers = _layer_params(params, cfg)
     for i, window in enumerate(_layer_windows(cfg)):
-        lp = _layer_params(params, cfg, i)
+        lp = layers[i]
         q, k, v = _qkv(cfg, x, lp, sin, cos)
         kc, vc = cache["k"][i], cache["v"][i]          # views: [B, Smax, KV, hd]
         if length.dim() == 0:
@@ -209,4 +287,6 @@ def build(cfg: ModelConfig) -> TorchModelApi:
         decode_step=lambda params, cache, batch: decode_step(params, cfg,
                                                              cache, batch),
         cache_specs=lambda B, Smax: cache_specs(cfg, B, Smax),
+        loss=lambda params, batch: loss_fn(params, cfg, batch),
+        input_specs=functools.partial(token_batch_specs, cfg),
     )

@@ -1,0 +1,18 @@
+"""Training of the port: the data pipeline, schedules, the optimizer, the
+train step over the flat train state and the fault-tolerant trainer — the
+counterparts of the JAX package's ``train`` modules (no meshes yet)."""
+
+from repro_torch.train.data import SyntheticLM  # noqa: F401
+from repro_torch.train.loop import (  # noqa: F401
+    SimulatedPreemption,
+    TorchTrainer,
+    TrainerConfig,
+)
+from repro_torch.train.optim import AdamW, make_optimizer  # noqa: F401
+from repro_torch.train.schedule import warmup_cosine  # noqa: F401
+from repro_torch.train.step import (  # noqa: F401
+    TrainStep,
+    init_train_state,
+    make_train_step,
+    train_state_specs,
+)

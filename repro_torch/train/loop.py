@@ -1,0 +1,187 @@
+"""Fault-tolerant training loop, the counterpart of the JAX package's
+``train/loop.py``: the paper's technique as the recovery path.
+
+Every ``ckpt_every`` steps the loop snapshots the train state to host
+memory (``ckpt_pack`` gathers each array's chunks on the card, one
+device-to-host copy) and writes it through the N-to-M ``TensorCheckpoint``
+on a background thread (double-buffered; the commit marker lands last, so
+a crash mid-write falls back to the previous committed step).  A restart
+goes through ``restore_latest``, the paper's load path, onto this process's
+device.
+
+The data pipeline state (next step index) and its seed ride in the
+checkpoint attrs, so a restart resumes the exact token stream.  The store
+files are the ones the reference ``Trainer`` writes, so either trainer
+restarts from the other's directory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.async_io import AsyncCheckpointer
+from repro_torch.core.comm import Comm
+from repro_torch.core.store import DatasetStore
+from repro_torch.core.tensor_ckpt import TensorCheckpoint
+from repro_torch.core.torch_io import (
+    layout_from_torch,
+    load_torch,
+    save_torch,
+    snapshot_torch,
+)
+from repro_torch.device import resolve_device
+from repro_torch.train.data import SyntheticLM
+from repro_torch.train.step import TrainStep
+
+
+class SimulatedPreemption(RuntimeError):
+    """Raised mid-run to emulate a node failure / wall-time kill."""
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    ckpt_dir: str
+    ckpt_every: int = 20
+    async_ckpt: bool = True
+    log_every: int = 10
+    # store constructor (root, mode) -> DatasetStore; lets harnesses swap in
+    # an instrumented store (a fault-injecting one, say)
+    store_factory: Callable[[str, str], DatasetStore] | None = None
+
+
+class TorchTrainer:
+    """Runs a :class:`TrainStep` on ``device`` (the card unless the caller
+    asks for the CPU).  ``save_log`` records, per save, the synchronous
+    snapshot's seconds (device-to-host included); the async writer's own
+    ``job_log`` has the write seconds."""
+
+    def __init__(self, step: TrainStep, data: SyntheticLM,
+                 cfg: TrainerConfig, init_state_fn: Callable[[], dict],
+                 device="cuda"):
+        self.step = step
+        self.data = data
+        self.cfg = cfg
+        self.init_state_fn = init_state_fn
+        self.device = resolve_device(device)
+        self.comm = Comm(1)
+        self.history: list[dict] = []
+        self.save_log: list[dict] = []
+        self._async: AsyncCheckpointer | None = None
+
+    # ------------------------------------------------------------ ckpt io
+    def _open_ckpt(self, mode: str) -> TensorCheckpoint:
+        make = self.cfg.store_factory or DatasetStore
+        return TensorCheckpoint(make(self.cfg.ckpt_dir, mode))
+
+    def restore_latest(self) -> tuple[dict, int]:
+        """(state on this trainer's device, start_step).  Fresh init if no
+        committed checkpoint exists — the cold-start path."""
+        try:
+            ck = self._open_ckpt("r")
+            steps = ck.steps()
+        except FileNotFoundError:
+            steps = []
+        if not steps:
+            return self.init_state_fn(), 0
+        return self.restore_from(steps[-1])
+
+    def restore_from(self, step: int) -> tuple[dict, int]:
+        """Restart-from-step-k: load committed step ``step`` of the
+        checkpoint stream onto this trainer's device.  A torn or unknown
+        step raises ``ValueError`` naming the committed prefix.  The stream
+        is append-only, so a run resumed from an earlier step can only save
+        steps beyond the last committed one."""
+        step = int(step)
+        ck = self._open_ckpt("a")
+        if step not in ck.steps():
+            raise ValueError(
+                f"restore_from({step}): step is not committed "
+                f"(committed steps: {ck.steps()})")
+        state = load_torch(ck, self.step.abstract_state, step,
+                           device=self.device)
+        return state, step
+
+    def _save(self, state: dict, step_idx: int) -> None:
+        """Synchronous host snapshot; the store write is double-buffered
+        on a daemon thread when cfg.async_ckpt.  Each save is one series
+        step bracketed by ``begin_step``/``commit_step``: the manifest
+        entry is the commit marker, so a crash mid-write falls back to the
+        previous committed step, and unchanged arrays dedup against the
+        stream (stored once, aliased in the manifest)."""
+        ck = self._open_ckpt("a" if self._ckpt_exists() else "w")
+        if not ck.store.has_attrs("layout"):
+            ck.save_layout(layout_from_torch(state),
+                           extra={"pipeline": self.data.state(step_idx)})
+        t0 = time.perf_counter()
+        if not self.cfg.async_ckpt:
+            ck.store.begin_step(step_idx)
+            save_torch(ck, state, step_idx)
+            ck.store.commit_step()
+            self.save_log.append({"step": step_idx, "async": False,
+                                  "seconds": time.perf_counter() - t0})
+            return
+        if self._async is None or self._async.ckpt.store.root != ck.store.root:
+            self._async = AsyncCheckpointer(ck, self.comm)
+        per_rank = snapshot_torch(ck.layout(), state)
+        t1 = time.perf_counter()
+        self._async.begin_step(step_idx)
+        self._async.submit(per_rank, step_idx)
+        self._async.commit_step()
+        self.save_log.append({"step": step_idx, "async": True,
+                              "snapshot_seconds": t1 - t0,
+                              "seconds": time.perf_counter() - t0})
+
+    def wait_for_writes(self) -> None:
+        if self._async is not None:
+            self._async.wait()
+
+    def _ckpt_exists(self) -> bool:
+        return os.path.exists(os.path.join(self.cfg.ckpt_dir, "store.json"))
+
+    # -------------------------------------------------------------- batches
+    def _device_batch(self, step_idx: int) -> dict:
+        batch = self.data.batch(step_idx)
+        out = {}
+        for k, spec in self.step.abstract_batch.items():
+            # extra inputs (e.g. whisper enc_frames) default to zeros
+            arr = (batch[k] if k in batch
+                   else np.zeros(spec.shape, dtype=np.dtype(spec.dtype)))
+            out[k] = torch.from_numpy(arr).to(self.device)
+        return out
+
+    # ----------------------------------------------------------------- run
+    def run(self, num_steps: int, *, fail_at: int | None = None,
+            start_state=None, start_step: int | None = None) -> dict:
+        if start_state is None:
+            state, start = self.restore_latest()
+        else:
+            state, start = start_state, int(start_step or 0)
+        t0 = time.time()
+        saved_steps = []
+        for i in range(start, num_steps):
+            if fail_at is not None and i == fail_at:
+                # SIGTERM grace period: flush the in-flight async write
+                # (the commit marker either lands whole or not at all)
+                self.wait_for_writes()
+                raise SimulatedPreemption(f"preempted at step {i}")
+            batch = self._device_batch(i)
+            state, metrics = self.step(state, batch)
+            if self.cfg.log_every and (i + 1) % self.cfg.log_every == 0:
+                self.history.append(
+                    {"step": i + 1,
+                     "loss": float(metrics["loss"]),
+                     "lr": float(metrics["lr"])})
+            if self.cfg.ckpt_every and (i + 1) % self.cfg.ckpt_every == 0:
+                self._save(state, i + 1)
+                saved_steps.append(i + 1)
+        self.wait_for_writes()
+        return {"state": state, "steps_run": num_steps - start,
+                "saved_steps": saved_steps,
+                "seconds": time.time() - t0,
+                "history": self.history}

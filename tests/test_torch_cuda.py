@@ -204,3 +204,79 @@ def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):
         scan_ops.lru_scan(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError):
         scan_ops.lru_scan(a, a.cpu())
+
+
+# ------------------------------------------------------------ train path
+@pytest.mark.parametrize("B,S", [(1, 512), (2, 1000), (4, 2048)])
+def test_flash_attention_vjp_grads_match_plain_path(cuda, B, S):
+    """The autograd Function's dq, dk, dv (kernel forward, backward through
+    the plain blocked path) against autograd through that plain path on
+    the same upstream gradient, bf16, smollm's heads: the same computation,
+    held to the kernel's bf16 tolerance (2e-2 + 2e-2 |plain|)."""
+    from repro_torch.models.layers import flash_attention_xla
+
+    g = torch.Generator(device=cuda).manual_seed(S)
+    shapes = [(B, S, 9, 64), (B, S, 3, 64), (B, S, 3, 64), (B, S, 9, 64)]
+    q, k, v, dout = (torch.randn(s, generator=g, device=cuda)
+                     .to(torch.bfloat16) for s in shapes)
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*ts), ts, dout)
+
+    attn_ops.launches = 0
+    got = grads(lambda a, b, c: attn_ops.flash_attention_vjp(
+        a, b, c, True, 0, 0.0, 512, 1024, 0))
+    assert attn_ops.launches == 1
+    want = grads(lambda a, b, c: flash_attention_xla(
+        a, b, c, causal=True, block_q=512, block_k=1024))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        assert bool(((a - b).abs() <= 2e-2 + 2e-2 * b.abs()).all())
+
+
+def test_deterministic_train_step_repeats_bit_for_bit(cuda, monkeypatch):
+    """Two runs of 3 train steps from one seeded state, in deterministic
+    mode, through the kernel path with remat: every array of the states and
+    every loss bit-equal."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.train import (AdamW, SyntheticLM, init_train_state,
+                                   make_train_step, warmup_cosine)
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = dataclasses.replace(get_smoke_config("smollm_135m"), d_model=256,
+                              head_dim=64, attention_impl="pallas",
+                              remat=True)
+    api = build_model(cfg)
+    step = make_train_step(api, AdamW(), functools.partial(
+        warmup_cosine, base_lr=3e-3, warmup=1, total=3),
+        ShapeConfig("t", 256, 2, "train"))
+    data = SyntheticLM(cfg.vocab, 256, 2, seed=0)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            state = init_train_state(
+                api, AdamW(), torch.Generator(device=cuda).manual_seed(0))
+            losses = []
+            for i in range(3):
+                batch = {k: torch.from_numpy(v).to(cuda)
+                         for k, v in data.batch(i).items()}
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            runs.append((state, losses))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (s1, l1), (s2, l2) = runs
+    assert l1 == l2 and all(np.isfinite(l1))
+    for name in s1:
+        assert torch.equal(s1[name].reshape(-1).view(torch.uint8),
+                           s2[name].reshape(-1).view(torch.uint8)), name
