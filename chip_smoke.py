@@ -4,7 +4,8 @@
 Drives the port's two serving paths, smollm-135m at full width, restored
 N-to-M, and recurrentgemma-9b at full width and full depth, then its
 training path: smollm-135m trained on the card, killed, and resumed from
-its N-to-M checkpoint.
+its N-to-M checkpoint; then the paper's own finite-element path at full
+size and the post-processing sweep of the training run's checkpoint.
 
   device   the card's name and power limit (nvidia-smi);
   build    the hand-written kernels, compiled from this checkout's sources;
@@ -33,9 +34,19 @@ its N-to-M checkpoint.
            (ckpt_pack packs each save) and is preempted at step 5; run C, a
            fresh trainer, restores the last committed step and runs to 6.
            C must end in A's state bit for bit.
+  fem      a P4 function on tri_mesh_fast(512, 512) (1.57 M entities, 4.2 M
+           DoFs) kept on the card, saved from N=8 simulated ranks at 3 time
+           indices through the async facade (``save_mesh``,
+           ``save_function``), loaded on M=1 (onto the card) and M=3; every
+           loaded DoF equal to the field at its node point, bit for bit;
+  postprocess  the committed steps of runs B and C swept on one rank
+           (``sweep_steps``), only the embedding table and the final norm
+           loaded onto the card, each equal to the train phase's own bit for
+           bit, the store reading no other array's datasets.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after; a kernel of a path that never launched fails the run.  Every phase
+after; a kernel of a path that never launched fails the run (the fem and
+postprocess paths run no kernel: their counts are reported).  Every phase
 prints one JSON line; a failing phase raises and the script exits non-zero.
 Before the last line come the {"kernels": [...]} line (``launches`` summed
 over the paths that run the kernel) and the card's name and power limit;
@@ -119,6 +130,19 @@ TRAIN_LR, TRAIN_WARMUP = 3e-3, 2
 # they should agree bit for bit under deterministic algorithms; the bound is
 # the attention kernel's bf16 tolerance
 VJP_ATOL = VJP_RTOL = 2e-2
+
+# the fem phase: a P4 Lagrange function on tri_mesh_fast(512, 512) (1.57 M
+# entities, 4.2 M DoFs, the share of 4 of the paper's 8,192 processes),
+# saved from 8 simulated ranks at 3 time indices, loaded on 1 and on 3
+FEM_NX = FEM_NY = 512
+FEM_DEGREE = 4
+FEM_SAVE_RANKS = 8
+FEM_LOAD_RANKS = (1, 3)
+FEM_TIMES = 3
+# the postprocess phase sweeps these arrays of the train phase's run B;
+# run A's state after this step is the reference for that step
+SWEEP_ARRAYS = ("params/embed", "params/final_norm")
+SWEEP_CHECK_A = 2
 
 
 def emit(obj) -> None:
@@ -526,6 +550,12 @@ def check_rglru_scan(W: int) -> dict:
 
 
 # -------------------------------------------------------------- main path
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtypes and equal bytes."""
+    return a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
 def save_restore(state, target, store_dir: str, nranks: int, device):
     """Save the tensors ``state`` as ``nranks`` ranks through the N-to-M
     engine and restore them onto ``device`` into ``target``'s names, shapes
@@ -552,10 +582,7 @@ def save_restore(state, target, store_dir: str, nranks: int, device):
     restored = load_torch(ck_r, target, step=0, device=device)
     _sync(device)
     t_load = time.perf_counter() - t0
-    mismatched = [n for n in state
-                  if restored[n].dtype != state[n].dtype
-                  or not torch.equal(restored[n].reshape(-1).view(torch.uint8),
-                                     state[n].reshape(-1).view(torch.uint8))]
+    mismatched = [n for n in state if not _same_bits(restored[n], state[n])]
     if mismatched:
         raise AssertionError(f"restore is not bit-exact for {mismatched}")
     if not ck_r.verify_step(Comm(1), 0):
@@ -850,6 +877,10 @@ def phase_train(cfg, device, store_dirs) -> dict:
                                     warmup=TRAIN_WARMUP, total=TRAIN_STEPS),
         ShapeConfig("train", TRAIN_S, TRAIN_B, "train"))
     step_seconds, step_fn = [], step.fn
+    # clones of the arrays the postprocess phase sweeps, for each step run
+    # B or C commits: run A's after step SWEEP_CHECK_A, those run C
+    # restores, and run C's at the end
+    kept, capture_a = {}, False
 
     def timed_step(state, batch):
         torch.cuda.synchronize()
@@ -857,6 +888,8 @@ def phase_train(cfg, device, store_dirs) -> dict:
         out = step_fn(state, batch)
         torch.cuda.synchronize()
         step_seconds.append(time.perf_counter() - t0)
+        if capture_a and int(out[0]["step"]) == SWEEP_CHECK_A:
+            kept[SWEEP_CHECK_A] = {n: out[0][n].clone() for n in SWEEP_ARRAYS}
         return out
 
     step = dataclasses.replace(step, fn=timed_step)
@@ -907,7 +940,9 @@ def phase_train(cfg, device, store_dirs) -> dict:
     # ---- A: TRAIN_STEPS straight, no checkpoint
     torch.cuda.reset_peak_memory_stats()
     ta = trainer(store_dirs[0], 0)
+    capture_a = True
     ra, a_counts, _ = counted(lambda ps: ta.run(TRAIN_STEPS), TRAIN_STEPS, 0)
+    capture_a = False
     peak = torch.cuda.max_memory_allocated()
     a_times = list(step_seconds)
     losses = [h["loss"] for h in ta.history]
@@ -940,18 +975,18 @@ def phase_train(cfg, device, store_dirs) -> dict:
     t_restore = time.perf_counter() - t0
     if start != committed:
         raise AssertionError(f"restored step {start}, not {committed}")
+    kept[start] = {n: state[n].clone() for n in SWEEP_ARRAYS}
     rc, c_counts, c_saves = counted(
         lambda ps: counting_saves(tc, ps).run(TRAIN_STEPS, start_state=state,
                                               start_step=start),
         TRAIN_STEPS - start,
         TRAIN_STEPS // TRAIN_CKPT_EVERY - start // TRAIN_CKPT_EVERY)
     differ = [k for k in ra["state"]
-              if ra["state"][k].dtype != rc["state"][k].dtype
-              or not torch.equal(ra["state"][k].reshape(-1).view(torch.uint8),
-                                 rc["state"][k].reshape(-1).view(torch.uint8))]
+              if not _same_bits(ra["state"][k], rc["state"][k])]
     if differ:
         raise AssertionError(f"the resumed run's state differs from the "
                              f"straight run's in {differ}")
+    kept[TRAIN_STEPS] = {n: rc["state"][n].clone() for n in SWEEP_ARRAYS}
     resumed = {h["step"]: h["loss"] for h in tc.history}
     straight = {h["step"]: h["loss"] for h in ta.history}
     if any(resumed[s] != straight[s] for s in resumed):
@@ -980,7 +1015,195 @@ def phase_train(cfg, device, store_dirs) -> dict:
             "launches": {"a": a_counts, "b": b_counts, "c": c_counts,
                          "c_ckpt_pack_per_save": c_saves,
                          "flash_attention_per_step": per_step},
-            "total_launches": launches}
+            "total_launches": launches}, kept
+
+
+def fem_field(t: int):
+    """The host field saved at time index ``t``: the FE benchmark's
+    sin(3x)(2 + cos 5y) + xy at t = 0, tilted by t(x - y) after."""
+    def field(p):
+        x, y = p[:, 0], p[:, 1]
+        return np.sin(3 * x) * (2 + np.cos(5 * y)) + x * y + t * (x - y)
+    return field
+
+
+def phase_fem(device, store_dir: str) -> dict:
+    """The paper's own path at full size: a P4 function on a 512 x 512
+    triangle mesh, its DoF vectors on the card, saved N-to-M from 8
+    simulated ranks at 3 time indices through the async facade, loaded on
+    M = 1 (onto the card) and on M = 3; every loaded DoF is checked bit for
+    bit against the field at its reconstructed node point (the paper's
+    §6.1 criterion)."""
+    from repro_torch.core.async_io import AsyncCheckpointer
+    from repro_torch.core.comm import Comm
+    from repro_torch.core.store import DatasetStore
+    from repro_torch.fem import (Element, FEMCheckpoint, FunctionSpace,
+                                 distribute, interpolate, node_points,
+                                 tri_mesh_fast)
+    from repro_torch.fem.torch_fem import (functions_from_device,
+                                           functions_to_device)
+
+    N = FEM_SAVE_RANKS
+    mesh = tri_mesh_fast(FEM_NX, FEM_NY)
+    t0 = time.perf_counter()
+    plexes, _, _ = distribute(mesh, N, method="contiguous", seed=0)
+    t_dist = time.perf_counter() - t0
+    spaces = [FunctionSpace(lp, Element("P", FEM_DEGREE, "triangle"))
+              for lp in plexes]
+    dofs = sum(sp.ndof_owned for sp in spaces)
+    # the simulation's DoF vectors live on the card, one per time index
+    h2d, d2h, on_card = [], [], []
+    for t in range(FEM_TIMES):
+        funcs = [interpolate(sp, fem_field(t)) for sp in spaces]
+        _sync(device)
+        t0 = time.perf_counter()
+        on_card.append(functions_to_device(funcs, device))
+        _sync(device)
+        h2d.append(time.perf_counter() - t0)
+    del funcs
+
+    store = DatasetStore(store_dir, "w")
+    ac = AsyncCheckpointer(FEMCheckpoint(store), Comm(N))
+    t_all = time.perf_counter()
+    ac.save_mesh("m", plexes)
+    t_save_mesh = time.perf_counter() - t_all
+    t_save_fn = []
+    for t, values in enumerate(on_card):
+        t0 = time.perf_counter()
+        host = functions_from_device(spaces, values)
+        d2h.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ac.save_function("m", "u", host, time_index=t)
+        t_save_fn.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ac.wait()
+    t_wait = time.perf_counter() - t0
+    t_all = time.perf_counter() - t_all
+    writer = {j["label"]: j["seconds"] for j in ac.job_log}
+    write_calls, n_datasets = store.stats.write_calls, len(store.datasets())
+    del on_card, host
+
+    loads = []
+    for M in FEM_LOAD_RANKS:
+        ck = FEMCheckpoint(DatasetStore(store_dir, "r"))
+        if ck.steps("m", "u") != list(range(FEM_TIMES)):
+            raise AssertionError(f"committed time indices "
+                                 f"{ck.steps('m', 'u')}")
+        comm = Comm(M)
+        t0 = time.perf_counter()
+        loaded = ck.load_mesh("m", comm, partition="contiguous")
+        t_mesh = time.perf_counter() - t0
+        if loaded.E != mesh.num_entities:
+            raise AssertionError(f"M={M}: loaded {loaded.E} entities, not "
+                                 f"{mesh.num_entities}")
+        row = {"load_ranks": M, "load_mesh_s": t_mesh, "load_fn_s": [],
+               "h2d_s": [], "dofs_checked": 0}
+        for t in range(FEM_TIMES):
+            t0 = time.perf_counter()
+            lspaces, lfuncs = ck.load_function(loaded, "u", comm,
+                                               time_index=t)
+            row["load_fn_s"].append(time.perf_counter() - t0)
+            if sum(sp.ndof_owned for sp in lspaces) != dofs:
+                raise AssertionError(f"M={M} t={t}: owned DoFs differ")
+            wants = [fem_field(t)(node_points(sp)) for sp in lspaces]
+            if M == 1:
+                # the result goes to the card and is checked there
+                _sync(device)
+                t0 = time.perf_counter()
+                got = functions_to_device(lfuncs, device)
+                _sync(device)
+                row["h2d_s"].append(time.perf_counter() - t0)
+                ok = all(_same_bits(g, torch.from_numpy(w).to(device))
+                         for g, w in zip(got, wants))
+                del got
+            else:
+                ok = all(np.array_equal(f.values.view(np.int64),
+                                        w.view(np.int64))
+                         for f, w in zip(lfuncs, wants))
+            if not ok:
+                raise AssertionError(f"M={M} t={t}: a loaded DoF differs "
+                                     f"from the field at its node")
+            row["dofs_checked"] += sum(f.values.size for f in lfuncs)
+        row["read_calls"] = ck.store.stats.read_calls
+        row["dofs_per_s"] = [dofs / s for s in row["load_fn_s"]]
+        loads.append(row)
+        ck.store.close()
+    store.close()
+    return {"phase": "fem", "mesh": f"tri_mesh_fast({FEM_NX}, {FEM_NY})",
+            "element": f"P{FEM_DEGREE} triangle", "entities":
+            mesh.num_entities, "dofs": dofs, "save_ranks": N,
+            "time_indices": FEM_TIMES, "distribute_s": t_dist,
+            "h2d_s": h2d, "d2h_s": d2h, "save_mesh_s": t_save_mesh,
+            "save_fn_s": t_save_fn, "wait_s": t_wait,
+            "save_wall_s": t_all, "writer_s": writer,
+            "arena_blocked_s": ac.arena.stats.blocked_seconds,
+            "save_dofs_per_s": dofs * FEM_TIMES / t_all,
+            "write_calls": write_calls, "datasets": n_datasets,
+            "loads": loads, "bit_exact": True}
+
+
+def phase_postprocess(store_dir: str, kept: dict, device) -> dict:
+    """Save big, post-process small: sweep every committed step of the
+    train phase's store (runs B and C: the full smollm-135m train state at
+    steps 2, 4 and 6) on one rank, loading only ``SWEEP_ARRAYS`` onto the
+    card; each swept array must equal the train phase's own, bit for bit,
+    and the store must read no more than those arrays' datasets."""
+    from repro_torch.core.store import DatasetStore, np_dtype
+    from repro_torch.core.tensor_ckpt import TensorCheckpoint
+    from repro_torch.core.torch_io import sweep_to_device
+
+    def nbytes(spec):
+        return int(np.prod(spec.shape)) * np_dtype(spec.dtype).itemsize
+
+    ck = TensorCheckpoint(DatasetStore(store_dir, "r"))
+    steps, layout = ck.steps(), ck.layout()
+    if sorted(kept) != steps:
+        raise AssertionError(f"committed steps {steps}, kept {sorted(kept)}")
+    st = ck.store
+    stored = 0                  # the swept arrays' datasets, every step
+    for s in steps:
+        for logical, phys in st.step_datasets(s).items():
+            if any(logical.startswith(f"{n}/e") for n in SWEEP_ARRAYS):
+                stored += (st.rows(phys) * st.dtype(phys).itemsize
+                           * int(np.prod(st.row_shape(phys), initial=1)))
+    array_bytes = sum(nbytes(layout.spec(n)) for n in SWEEP_ARRAYS)
+    state_bytes = sum(nbytes(spec) for spec in layout.arrays)
+    read0 = st.stats.bytes_read
+    it = sweep_to_device(ck, SWEEP_ARRAYS, device)
+    per_step = []
+    while True:
+        _sync(device)
+        t0 = time.perf_counter()
+        try:
+            step, arrays = next(it)
+        except StopIteration:
+            break
+        _sync(device)
+        dt = time.perf_counter() - t0
+        differ = [n for n in SWEEP_ARRAYS
+                  if arrays[n].device.type != device.type
+                  or not _same_bits(arrays[n], kept[step][n])]
+        if differ:
+            raise AssertionError(f"step {step}: swept {differ} differ from "
+                                 f"the train phase's")
+        per_step.append({"step": step, "seconds": dt,
+                         "gib_per_s": array_bytes / 2**30 / dt})
+    bytes_read = st.stats.bytes_read - read0
+    if [r["step"] for r in per_step] != steps:
+        raise AssertionError(f"swept {[r['step'] for r in per_step]}, "
+                             f"committed {steps}")
+    if bytes_read > stored:
+        raise AssertionError(f"the sweep read {bytes_read} bytes, more than "
+                             f"the swept arrays' {stored}: it touched "
+                             f"another array's datasets")
+    st.close()
+    return {"phase": "postprocess", "arrays": list(SWEEP_ARRAYS),
+            "layout_arrays": len(layout.names), "steps": per_step,
+            "array_bytes_per_step": array_bytes,
+            "state_bytes_per_step": state_bytes,
+            "stored_bytes_of_swept_arrays": stored,
+            "bytes_read": bytes_read, "read_calls": st.stats.read_calls,
+            "bit_exact": True}
 
 
 def main(argv=None) -> int:
@@ -1025,6 +1248,7 @@ def main(argv=None) -> int:
     hybrid_store = tempfile.mkdtemp(prefix="store_", dir=scratch)
     train_stores = [tempfile.mkdtemp(prefix="train_", dir=scratch)
                     for _ in range(2)]
+    fem_store = tempfile.mkdtemp(prefix="fem_", dir=scratch)
     try:
         with torch.inference_mode():
             params = api.init(torch.Generator(device=device).manual_seed(SEED))
@@ -1086,11 +1310,26 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
 
         # ---- the train path, outside inference mode (autograd needs it)
-        train = phase_train(dataclasses.replace(cfg, remat=True), device,
-                            train_stores)
+        train, kept = phase_train(dataclasses.replace(cfg, remat=True),
+                                  device, train_stores)
         emit(train)
+
+        # ---- the FE path and the post-processing sweep: no kernel of the
+        # port runs on them (the engine's gathers are host code); the counts
+        # are set to 0 just before each and read just after all the same
+        for run in (lambda: phase_fem(device, fem_store),
+                    lambda: phase_postprocess(train_stores[1], kept,
+                                              device)):
+            pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+            t0 = time.perf_counter()
+            line = run()
+            line["phase_seconds"] = time.perf_counter() - t0
+            line["kernel_launches"] = {"ckpt_pack": pack_ops.launches,
+                                       "flash_attention": attn_ops.launches,
+                                       "rglru_scan": scan_ops.launches}
+            emit(line)
     finally:
-        for d in [store_dir, hybrid_store] + train_stores:
+        for d in [store_dir, hybrid_store, fem_store] + train_stores:
             shutil.rmtree(d, ignore_errors=True)
     launches = {"ckpt_pack": dense["ckpt_pack"] + hybrid["ckpt_pack"]
                 + train["total_launches"]["ckpt_pack"],

@@ -1,10 +1,7 @@
 """Asynchronous checkpointing: serialize-then-write with bounded staging.
 
-A copy of the JAX package's ``core/async_io.py`` for tensor state.  Two
-things differ: the static-analysis markers are gone, and so is the FEM
-facade (``save_mesh``, ``save_function`` and the ``FEMCheckpoint``
-argument), since the finite-element engine is not ported; its mentions
-below describe the reference.
+A copy of the JAX package's ``core/async_io.py``, its FEM facade included;
+only the static-analysis markers are gone.
 
 The training loop / simulation must not stall on the filesystem (the paper's
 save times — Table 6.3 — are seconds to minutes at scale).  The pipeline is
@@ -245,11 +242,13 @@ class _Job:
 
 
 class AsyncCheckpointer:
-    """Single async front door for tensor checkpointing.
+    """Single async front door for tensor AND FEM checkpointing.
 
-    Accepts a :class:`TensorCheckpoint` or a bare :class:`DatasetStore`.
-    ``submit`` saves tensor state: it serializes synchronously
-    into the bounded :class:`StagingArena` and returns; one daemon writer
+    Accepts a :class:`TensorCheckpoint`, a ``FEMCheckpoint`` or a bare
+    :class:`DatasetStore` (both facades are built on demand over the same
+    store).  ``submit`` saves tensor state; ``save_mesh``/``save_function``
+    mirror the ``FEMCheckpoint`` API.  All three serialize synchronously
+    into the bounded :class:`StagingArena` and return; one daemon writer
     drains the jobs in submission order and writes each job's commit marker
     last (see the module docstring for the recovery contract).
     """
@@ -259,13 +258,19 @@ class AsyncCheckpointer:
         if isinstance(ckpt, TensorCheckpoint):
             self.store = ckpt.store
             self.ckpt = ckpt
+            self._fem = None
         elif isinstance(ckpt, DatasetStore):
             self.store = ckpt
             self.ckpt = TensorCheckpoint(ckpt)
+            self._fem = None
+        elif hasattr(ckpt, "store"):       # FEMCheckpoint (duck-typed: no
+            self.store = ckpt.store        # eager core -> fem import)
+            self.ckpt = TensorCheckpoint(ckpt.store)
+            self._fem = ckpt
         else:
             raise TypeError(
-                f"AsyncCheckpointer needs a TensorCheckpoint or DatasetStore, "
-                f"got {type(ckpt).__name__}")
+                f"AsyncCheckpointer needs a TensorCheckpoint, FEMCheckpoint "
+                f"or DatasetStore, got {type(ckpt).__name__}")
         self.comm = comm
         # mark the store async-managed BEFORE any data write: a crash before
         # the first commit must leave an (empty) log, not a store that
@@ -283,6 +288,14 @@ class AsyncCheckpointer:
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
         self._lock = threading.Lock()
+
+    # ------------------------------------------------------------ fem facade
+    @property
+    def fem(self):
+        if self._fem is None:
+            from repro_torch.fem.checkpoint import FEMCheckpoint
+            self._fem = FEMCheckpoint(self.store)
+        return self._fem
 
     # ------------------------------------------------------------------- api
     def submit(self, per_rank: PerRankState, step: int) -> None:
@@ -303,6 +316,67 @@ class AsyncCheckpointer:
         self._enqueue(_Job(run, slot, f"state/s{step}",
                            commit={"kind": "state", "step": int(step)},
                            step=int(step)))
+
+    def save_mesh(self, name: str, plexes: list, comm: Comm | None = None,
+                  labels: dict[str, list[np.ndarray]] | None = None) -> None:
+        """Async ``FEMCheckpoint.save_mesh``: coordinates and labels are
+        snapshotted (topology is immutable by contract); the commit-log
+        entry for the mesh — which also covers its coordinate function —
+        is the job's last write."""
+        self._raise_pending()
+        label_names = sorted(labels) if labels else []
+        blocks = ([lp.vcoords for lp in plexes if lp.vcoords is not None]
+                  + [np.asarray(v) for ln in label_names
+                     for v in labels[ln]])
+        slot = self.arena.acquire(sum(int(b.nbytes) for b in blocks))
+        try:
+            _, views = pack_flat(blocks, self.arena.buffer(slot))
+            seq = iter(views)
+            snap_plexes = [dataclasses.replace(
+                lp, vcoords=(next(seq) if lp.vcoords is not None else None))
+                for lp in plexes]
+            snap_labels = ({ln: [next(seq) for _ in labels[ln]]
+                            for ln in label_names} if labels else None)
+        except BaseException:
+            self.arena.release(slot)
+            raise
+        use_comm = comm if comm is not None else self.comm
+
+        def run():
+            self.fem.save_mesh(name, snap_plexes, use_comm,
+                               labels=snap_labels)
+
+        self._enqueue(_Job(run, slot, f"mesh/{name}",
+                           commit={"kind": "mesh", "mesh": name}))
+
+    def save_function(self, mesh: str, fname: str, funcs: list,
+                      comm: Comm | None = None,
+                      time_index: int | None = None) -> None:
+        """Async ``FEMCheckpoint.save_function``: the DoF vectors ("dats")
+        are snapshotted; the commit-log entry naming ``time_index`` is the
+        job's last write."""
+        self._raise_pending()
+        from repro_torch.fem.function import Function
+        blocks = [f.values for f in funcs]
+        slot = self.arena.acquire(sum(int(b.nbytes) for b in blocks))
+        try:
+            _, views = pack_flat(blocks, self.arena.buffer(slot))
+            snap_funcs = [Function(f.space, v)
+                          for f, v in zip(funcs, views)]
+        except BaseException:
+            self.arena.release(slot)
+            raise
+        use_comm = comm if comm is not None else self.comm
+
+        def run():
+            self.fem.save_function(mesh, fname, snap_funcs, use_comm,
+                                   time_index=time_index)
+
+        self._enqueue(_Job(
+            run, slot, f"func/{fname}"
+            + ("" if time_index is None else f"/t{time_index}"),
+            commit={"kind": "func", "mesh": mesh, "fname": fname,
+                    "step": time_index}))
 
     def begin_step(self, step: int, series: str = DEFAULT_SERIES) -> None:
         """Open series step ``step`` (ordered on the writer thread): every

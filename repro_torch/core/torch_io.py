@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core.chunk_layout import ArraySpec, Box, StateLayout
 from repro_torch.core.comm import Comm
+from repro_torch.core.resharder import sweep_steps
 from repro_torch.core.store import HOST_WORDS, np_dtype
 from repro_torch.core.tensor_ckpt import ArrayShard, PerRankState, TensorCheckpoint
 from repro_torch.device import resolve_device
@@ -200,3 +201,17 @@ def load_torch(ck: TensorCheckpoint, target: Mapping[str, torch.Tensor], step: i
         t = to_torch(host[name][0], layout.spec(name).dtype).to(dev)
         out[name] = t if t.dtype == leaf.dtype else t.to(leaf.dtype)
     return out
+
+
+def sweep_to_device(ck: TensorCheckpoint, arrays, device="cuda"):
+    """Yield ``(step, {name: tensor})`` for every committed step of ``ck``'s
+    series, loading only ``arrays`` whole onto one rank: the region plan
+    covers every array once and ``sweep_steps`` narrows it to ``arrays``.
+    One host-to-device copy per array."""
+    dev = resolve_device(device)
+    layout = ck.layout()
+    plan = [{spec.name: [spec.full_box] for spec in layout.arrays}]
+    for step, out in sweep_steps(ck, plan, Comm(1), arrays=list(arrays)):
+        yield step, {name: to_torch(out[0][name][0],
+                                    layout.spec(name).dtype).to(dev)
+                     for name in arrays}

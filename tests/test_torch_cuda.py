@@ -280,3 +280,59 @@ def test_deterministic_train_step_repeats_bit_for_bit(cuda, monkeypatch):
     for name in s1:
         assert torch.equal(s1[name].reshape(-1).view(torch.uint8),
                            s2[name].reshape(-1).view(torch.uint8)), name
+
+
+def _fe_functions(N):
+    from repro_torch.fem import (Element, FunctionSpace, distribute,
+                                 interpolate, tri_mesh)
+    plexes, _, _ = distribute(tri_mesh(6, 5, seed=2), N, method="random",
+                              seed=3)
+    spaces = [FunctionSpace(lp, Element("P", 4, "triangle")) for lp in plexes]
+    funcs = [interpolate(sp, lambda p: np.sin(3 * p[:, 0])
+                         * (2 + np.cos(5 * p[:, 1])) + p[:, 0] * p[:, 1])
+             for sp in spaces]
+    return spaces, funcs
+
+
+@pytest.mark.parametrize("N", [1, 4])
+def test_functions_round_trip_through_the_card(cuda, N):
+    """DoF vectors to the card and back, float64, bit for bit."""
+    from repro_torch.fem.torch_fem import (functions_from_device,
+                                           functions_to_device)
+    spaces, funcs = _fe_functions(N)
+    on_card = functions_to_device(funcs)            # the card by default
+    assert all(t.device.type == "cuda" and t.dtype == torch.float64
+               for t in on_card)
+    for t, f in zip(on_card, funcs):
+        assert np.array_equal(t.cpu().numpy(), f.values)
+    back = functions_from_device(spaces, on_card)
+    for b, f in zip(back, funcs):
+        assert np.array_equal(b.values, f.values)
+
+
+def test_fe_round_trip_n4_to_m1_lands_on_the_card(cuda, tmp_path):
+    """A P4 function kept on the card, saved from N = 4 through the async
+    facade and loaded on M = 1 onto the card: every DoF equals the field
+    at its node, bit for bit."""
+    from repro_torch.core.async_io import AsyncCheckpointer
+    from repro_torch.core.comm import Comm
+    from repro_torch.core.store import DatasetStore
+    from repro_torch.fem import FEMCheckpoint, node_points
+    from repro_torch.fem.torch_fem import (functions_from_device,
+                                           functions_to_device)
+    spaces, funcs = _fe_functions(4)
+    on_card = functions_to_device(funcs, cuda)
+    ac = AsyncCheckpointer(FEMCheckpoint(DatasetStore(str(tmp_path), "w")),
+                           Comm(4))
+    ac.save_mesh("m", [sp.plex for sp in spaces])
+    ac.save_function("m", "f", functions_from_device(spaces, on_card),
+                     time_index=0)
+    ac.wait()
+    ck = FEMCheckpoint(DatasetStore(str(tmp_path), "r"))
+    loaded = ck.load_mesh("m", Comm(1))
+    lspaces, lfuncs = ck.load_function(loaded, "f", Comm(1), time_index=0)
+    (got,) = functions_to_device(lfuncs, cuda)
+    assert got.device.type == "cuda"
+    p = node_points(lspaces[0])
+    want = np.sin(3 * p[:, 0]) * (2 + np.cos(5 * p[:, 1])) + p[:, 0] * p[:, 1]
+    assert np.array_equal(got.cpu().numpy(), want)

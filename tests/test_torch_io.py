@@ -4,6 +4,7 @@ directions bit for bit.  Mirrors ``tests/test_jax_io.py``."""
 
 from __future__ import annotations
 
+import ast
 import filecmp
 import os
 import subprocess
@@ -263,3 +264,23 @@ def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with neither ``jax`` nor the JAX
     package (``repro``) nor ``ml_dtypes`` ending up in sys.modules."""
     _run(_IMPORT_ALL)
+
+
+def test_port_has_no_import_of_jax_or_reference_anywhere():
+    """No import statement of the port, module level or inside a function
+    body (the lazy imports of ``fem.checkpoint``, ``fem.section`` and the
+    FEM facade of ``core.async_io``, which importing every module never
+    runs), names ``jax``, the JAX package or ``ml_dtypes``."""
+    banned = ("jax", "repro", "ml_dtypes")
+    found = []
+    for path in sorted((REPO / "repro_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
+                      for n in names if n.split(".")[0] in banned]
+    assert not found, found

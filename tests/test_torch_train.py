@@ -13,10 +13,8 @@ dtype beside it.
 
 from __future__ import annotations
 
-import ast
 import dataclasses
 import functools
-import inspect
 import json
 
 import jax
@@ -24,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from helpers.ast_copy import normalised
 from jax.sharding import AxisType
 
 from repro.configs import get_smoke_config
@@ -417,75 +416,13 @@ def test_train_step_matches_reference(microbatches, dtype, tol):
 
 
 # ------------------------------------------------------------ async_io copy
-class _Normalise(ast.NodeTransformer):
-    """The reference module's tree without its markers and FEM facade, and
-    both modules' trees without docstrings, under one package name."""
-
-    FEM = {"fem", "save_mesh", "save_function"}
-
-    def __init__(self, reference: bool):
-        self.reference = reference
-
-    def _strip_doc(self, node):
-        body = node.body
-        if (body and isinstance(body[0], ast.Expr)
-                and isinstance(body[0].value, ast.Constant)
-                and isinstance(body[0].value.value, str)):
-            node.body = body[1:] or [ast.Pass()]
-        return node
-
-    def visit_Module(self, node):
-        return self._strip_doc(self.generic_visit(node))
-
-    def visit_ImportFrom(self, node):
-        if node.module == "repro.analysis":
-            return None
-        node.module = node.module.replace("repro_torch.", "repro.")
-        return node
-
-    def visit_ClassDef(self, node):
-        if self.reference:
-            node.body = [b for b in node.body
-                         if getattr(b, "name", None) not in self.FEM]
-        return self._strip_doc(self.generic_visit(node))
-
-    def visit_FunctionDef(self, node):
-        node.decorator_list = [d for d in node.decorator_list
-                               if not (isinstance(d, ast.Name)
-                                       and d.id == "hot_path")]
-        if node.name == "__init__" and self.reference:
-            self._drop_fem_branch(node)
-        return self._strip_doc(self.generic_visit(node))
-
-    def visit_Raise(self, node):
-        # the type check's message names the accepted types
-        if "TypeError" in ast.dump(node):
-            return ast.Raise(exc=ast.Name("TypeError", ast.Load()), cause=None)
-        return node
-
-    @staticmethod
-    def _drop_fem_branch(init):
-        for stmt in ast.walk(init):
-            if isinstance(stmt, ast.If):
-                stmt.body = [s for s in stmt.body
-                             if "_fem" not in ast.dump(s)]
-                if (len(stmt.orelse) == 1 and isinstance(stmt.orelse[0], ast.If)
-                        and "hasattr" in ast.dump(stmt.orelse[0].test)):
-                    stmt.orelse = stmt.orelse[0].orelse
-
-
-def _normalised(module, reference: bool) -> str:
-    tree = _Normalise(reference).visit(ast.parse(inspect.getsource(module)))
-    return ast.dump(tree)
-
-
 def test_async_io_is_a_copy_of_the_reference():
-    """The port's ``async_io`` is the reference module with the
-    ``@hot_path`` markers and the FEM facade (``fem``, ``save_mesh``,
-    ``save_function`` and the ``FEMCheckpoint`` branch) removed, docstrings
-    aside."""
-    assert _normalised(async_io, False) == _normalised(ref_async_io, True)
-    assert not {"fem", "save_mesh", "save_function"} & set(
+    """The port's ``async_io`` is the whole reference module, its FEM facade
+    (``fem``, ``save_mesh``, ``save_function`` and the ``FEMCheckpoint``
+    branch) included, with the ``@hot_path`` markers removed, docstrings
+    and the package prefix aside."""
+    assert normalised(async_io) == normalised(ref_async_io)
+    assert {"fem", "save_mesh", "save_function"} <= set(
         vars(async_io.AsyncCheckpointer))
 
 
