@@ -42,7 +42,16 @@ size and the post-processing sweep of the training run's checkpoint.
   postprocess  the committed steps of runs B and C swept on one rank
            (``sweep_steps``), only the embedding table and the final norm
            loaded onto the card, each equal to the train phase's own bit for
-           bit, the store reading no other array's datasets.
+           bit, the store reading no other array's datasets;
+  elastic  smollm-135m at full width (depth cut to 2 layers) trained sharded
+           over torch.distributed processes and restarted on other process
+           counts: N = 4 CPU processes (gloo, mesh (2, 2)) save steps 2 and
+           4 through rank 0's async writer, which a fault store kills 4 ops
+           into step 4's save (every process must raise); M = 1 on the card
+           (NCCL, mesh (1, 1)) restores step 2, bit-equal to what the 4
+           processes held, trains to 4 through the flash kernel and saves
+           step 4 through ckpt_pack; M = 2 CPU processes (mesh (1, 2))
+           restore step 4, bit-equal to the card's state.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of a path that never launched fails the run (the fem and
@@ -55,6 +64,8 @@ the 9.4 B-parameter model is 18.8 GB in bf16) and the repository around it;
 imports nothing of JAX.
 
     python3 chip_smoke.py [--kernels-only]
+
+``--kernels-only`` stops after the kernel checks.
 """
 
 from __future__ import annotations
@@ -143,6 +154,17 @@ FEM_TIMES = 3
 # run A's state after this step is the reference for that step
 SWEEP_ARRAYS = ("params/embed", "params/final_norm")
 SWEEP_CHECK_A = 2
+# the elastic phase: smollm-135m at full width with its depth cut to 2
+# layers (35.4 M parameters, 28.3 M of them the embedding), B 4, S 256,
+# AdamW under warmup_cosine(3e-3, warmup 2, total 4), a save every 2 steps.
+# The meshes of its three legs, the store ops rank 0's writer completes
+# before the fault store kills it, and how long a collective waits for a
+# peer (rank 0 alone runs a restore's engine, tens of seconds, while the
+# others wait)
+ELASTIC_LAYERS, ELASTIC_B, ELASTIC_S, ELASTIC_STEPS = 2, 4, 256, 4
+ELASTIC_MESH_N, ELASTIC_MESH_CARD, ELASTIC_MESH_M = (2, 2), (1, 1), (1, 2)
+ELASTIC_KILL_AFTER_OPS = 4
+ELASTIC_PG_TIMEOUT = 900
 
 
 def emit(obj) -> None:
@@ -361,6 +383,7 @@ def check_flash_attention(cfg) -> dict:
         (2, 300, 1324, 1024, 0, 0.0, ()),  # q_offset continuation
         (1, 700, 700, 0, 256, 0.0, ()),    # sliding window
         (1, 333, 333, 0, 0, 50.0, ()),     # logit softcap
+        (ELASTIC_B, ELASTIC_S, ELASTIC_S, 0, 0, 0.0, ()),  # the elastic step
         (HD128[0], HD128[1], HD128[1], 0, 0, 0.0, HD128[2:]),
     ] + [(1, P, P, 0, 0, 0.0, ()) for P in sorted({p for p, _ in REQUESTS})]
     worst, results = 0.0, []
@@ -1206,6 +1229,142 @@ def phase_postprocess(store_dir: str, kept: dict, device) -> dict:
             "bit_exact": True}
 
 
+def phase_elastic(cfg, scratch: Path) -> tuple[dict, dict]:
+    """The three legs (see the module docstring).  Legs 1 and 3 run in new
+    CPU processes; leg 2 runs here, on the card, with the launch counts at
+    0 just before it and read just after.  Returns the phase line and leg
+    2's launches."""
+    from repro_torch.core.store import DatasetStore, np_dtype
+    from repro_torch.core.tensor_ckpt import TensorCheckpoint
+    from repro_torch.kernels.ckpt_pack import ops as pack_ops
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.launch.spawn import run_processes
+    from repro_torch.models.api import build_model
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.elastic import Phase, run_phase, run_phases
+    from repro_torch.train.step import train_state_specs
+
+    # the port's fault store, which the test suite uses too
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from helpers.torch_faultstore import FaultStore
+
+    ecfg = dataclasses.replace(cfg, num_layers=ELASTIC_LAYERS)
+    specs = train_state_specs(build_model(ecfg), AdamW())
+    state_bytes = sum(int(np.prod(s.shape)) * np_dtype(s.dtype).itemsize
+                      for s in specs.values())
+    params = sum(int(np.prod(s.shape)) for n, s in specs.items()
+                 if n.startswith("params/"))
+    ckpt = tempfile.mkdtemp(prefix="elastic_", dir=scratch)
+    keep2, keep4 = str(scratch / "elastic_step2.pt"), str(
+        scratch / "elastic_step4.pt")
+    common = dict(arch="smollm_135m", smoke=False, num_layers=ELASTIC_LAYERS,
+                  attention_impl=cfg.attention_impl, seq=ELASTIC_S,
+                  batch=ELASTIC_B, ckpt_every=2, base_lr=TRAIN_LR,
+                  warmup=TRAIN_WARMUP, total=ELASTIC_STEPS)
+    gib = state_bytes / 2**30
+
+    def committed():
+        st = DatasetStore(ckpt, "r")
+        try:
+            return TensorCheckpoint(st).steps()
+        finally:
+            st.close()
+
+    def store_bytes():
+        return sum(p.stat().st_size for p in Path(ckpt).rglob("*")
+                   if p.is_file())
+
+    def spawn(nprocs, phases):
+        t0 = time.time()
+        per_rank = run_processes(run_phases, nprocs, (phases,),
+                                 timeout=ELASTIC_PG_TIMEOUT,
+                                 pg_timeout=ELASTIC_PG_TIMEOUT)
+        return per_rank, per_rank[0][0]["entered_at"] - t0
+
+    legs = []
+    # ---- leg 1: N = 4 CPU processes, fresh from seed 0, steps 0 -> 2 saving
+    # 2 (rank 0 keeps the whole state), then 2 -> 4 with the writer killed
+    t0 = time.perf_counter()
+    n_runs, spawn_n = spawn(4, [
+        Phase(ELASTIC_MESH_N, 2, ckpt, 0, keep=keep2, **common),
+        Phase(ELASTIC_MESH_N, ELASTIC_STEPS, ckpt, 2, carry_on=True,
+              store_factory=functools.partial(
+                  FaultStore, kill_after_ops=ELASTIC_KILL_AFTER_OPS),
+              expect_crash=True, **common)])
+    first, crashed = n_runs[0]
+    raised = [r[1].get("crash") for r in n_runs]
+    if not all(raised) or committed() != [2]:
+        raise AssertionError(f"the writer's death must raise on every "
+                             f"process and leave step 2 committed: raised "
+                             f"{raised}, committed {committed()}")
+    legs.append({"leg": "N", "processes": 4, "device": "cpu",
+                 "mesh": list(ELASTIC_MESH_N), "spawn_seconds": spawn_n,
+                 "init_seconds": first["restore_seconds"],
+                 "step_seconds": first["step_seconds"],
+                 "losses": [h["loss"] for h in first["history"]
+                            + crashed["history"]],
+                 "saves": first["save_log"], "raised_on_every_process": raised,
+                 "committed_after": committed(), "store_bytes": store_bytes(),
+                 "seconds": time.perf_counter() - t0})
+
+    # ---- leg 2: M = 1 on the card, counts at 0 just before, read just after
+    t0 = time.perf_counter()
+    pack_ops.launches = attn_ops.launches = 0
+    init_distributed("cuda", rank=0, world_size=1,
+                     timeout=ELASTIC_PG_TIMEOUT)
+    try:
+        card = run_phase(Phase(ELASTIC_MESH_CARD, ELASTIC_STEPS, ckpt, 2,
+                               from_step=2, verify=keep2, keep=keep4,
+                               device="cuda", **common))
+    finally:
+        torch.distributed.destroy_process_group()
+    launches = {"flash_attention": attn_ops.launches,
+                "ckpt_pack": pack_ops.launches}
+    per_step = (2 if ecfg.remat else 1) * ecfg.num_layers
+    steps_run = ELASTIC_STEPS - 2
+    if launches["flash_attention"] != per_step * steps_run or \
+            not launches["ckpt_pack"]:
+        raise AssertionError(f"the card's leg launched {launches}: expected "
+                             f"{per_step * steps_run} flash_attention "
+                             f"launches and ckpt_pack on its save")
+    if committed() != [2, ELASTIC_STEPS] or not card["losses_finite"]:
+        raise AssertionError(f"committed {committed()}, losses "
+                             f"{card['history']}")
+    legs.append({"leg": "card", "processes": 1, "device": "cuda",
+                 "mesh": list(ELASTIC_MESH_CARD), "restored_step": 2,
+                 "restore_seconds": card["restore_seconds"],
+                 "restore_gib_per_s": gib / card["restore_seconds"],
+                 "bit_equal_arrays": card["bit_equal_arrays"],
+                 "step_ms": [t * 1e3 for t in card["step_seconds"]],
+                 "losses": [h["loss"] for h in card["history"]],
+                 "saves": card["save_log"], "launches": launches,
+                 "committed_after": committed(), "store_bytes": store_bytes(),
+                 "seconds": time.perf_counter() - t0})
+
+    # ---- leg 3: M = 2 CPU processes restore the card's step 4
+    t0 = time.perf_counter()
+    m_runs, spawn_m = spawn(2, [Phase(ELASTIC_MESH_M, ELASTIC_STEPS, ckpt,
+                                      ELASTIC_STEPS, from_step=ELASTIC_STEPS,
+                                      verify=keep4, **common)])
+    restore_m = max(r[0]["restore_seconds"] for r in m_runs)
+    if any(r[0]["bit_equal_arrays"] != len(specs) for r in m_runs):
+        raise AssertionError("the 2 processes' restore is not bit-equal")
+    legs.append({"leg": "M", "processes": 2, "device": "cpu",
+                 "mesh": list(ELASTIC_MESH_M), "spawn_seconds": spawn_m,
+                 "restored_step": ELASTIC_STEPS, "restore_seconds": restore_m,
+                 "restore_gib_per_s": gib / restore_m,
+                 "bit_equal_arrays": len(specs),
+                 "seconds": time.perf_counter() - t0})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"phase": "elastic", "arch": cfg.arch, "layers": ELASTIC_LAYERS,
+            "params": params, "state_bytes": state_bytes,
+            "arrays": len(specs), "batch": ELASTIC_B, "seq": ELASTIC_S,
+            "N": 4, "M": [1, 2], "legs": legs,
+            "bit_exact_restores": True}, launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not (ROOT / "repro_torch" / "__init__.py").exists():
@@ -1221,13 +1380,9 @@ def main(argv=None) -> int:
     # mode, which needs cuBLAS's fixed workspace
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.tensor_ckpt import balanced_chunk_partition
     from repro_torch.core.torch_io import layout_from_torch
-    from repro_torch.kernels.ckpt_pack import ops as pack_ops
-    from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.kernels.rglru_scan import ops as scan_ops
-    from repro_torch.models.api import build_model, make_token_batch
+    from repro_torch.models.api import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1262,79 +1417,26 @@ def main(argv=None) -> int:
                 emit({"phase": "kernels", **entry})
             if "--kernels-only" in argv:
                 return 0
-            # ---- the smollm path: counts at 0 just before, read just after
-            pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
-            ckpt, restored = phase_ckpt(api, params, store_dir, NRANKS, device)
-            requests = make_requests(cfg.vocab)
-            serve, results = phase_serve(api, restored, requests, SLOTS, device)
-            dense = {"ckpt_pack": pack_ops.launches,
-                     "flash_attention": attn_ops.launches}
-            ckpt["ckpt_pack_launches"] = dense["ckpt_pack"]
-            emit(ckpt)
-            serve["flash_attention_launches"] = dense["flash_attention"]
-            serve.update(check_served(api, restored, requests, results, SLOTS))
-            serve.update(check_model_logits(api, restored))
-            emit(serve)
-            if not all(dense.values()):
-                raise AssertionError(f"a kernel of the smollm path never "
-                                     f"launched: {dense}")
-            del params, restored, layout, ownership
-            torch.cuda.empty_cache()
-
-            # ---- the hybrid path: counts at 0 just before, read just after
-            hparams = hapi.init(
-                torch.Generator(device=device).manual_seed(SEED))
-            tokens = torch.from_numpy(make_token_batch(
-                hcfg, ShapeConfig("serve", HYBRID_P, HYBRID_B, "prefill"),
-                seed=SEED)["tokens"]).to(device)
-            pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
-            hserve, kept = phase_hybrid_serve(hapi, hparams, tokens, device)
-            # one launch per RG-LRU layer of the one prefill
-            n_lru = sum(k == "lru" for k in hcfg.layer_kinds())
-            hserve["rglru_scan_launches"] = scan_ops.launches
-            emit(hserve)
-            if scan_ops.launches != n_lru:
-                raise AssertionError(f"rglru_scan launched {scan_ops.launches}"
-                                     f" times in one prefill, not {n_lru}")
-            hstate = phase_hybrid_state(hapi, hparams, kept, hybrid_store,
-                                        NRANKS, device)
-            hybrid = {"rglru_scan": scan_ops.launches,
-                      "ckpt_pack": pack_ops.launches}
-            hstate["ckpt_pack_launches"] = hybrid["ckpt_pack"]
-            emit(hstate)
-            if not all(hybrid.values()):
-                raise AssertionError(f"a kernel of the hybrid path never "
-                                     f"launched: {hybrid}")
-            phase_hybrid_consistency(hapi, hparams, tokens, kept)
-            del hparams, kept, tokens
-            torch.cuda.empty_cache()
-
-        # ---- the train path, outside inference mode (autograd needs it)
-        train, kept = phase_train(dataclasses.replace(cfg, remat=True),
-                                  device, train_stores)
-        emit(train)
-
-        # ---- the FE path and the post-processing sweep: no kernel of the
-        # port runs on them (the engine's gathers are host code); the counts
-        # are set to 0 just before each and read just after all the same
-        for run in (lambda: phase_fem(device, fem_store),
-                    lambda: phase_postprocess(train_stores[1], kept,
-                                              device)):
-            pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
-            t0 = time.perf_counter()
-            line = run()
-            line["phase_seconds"] = time.perf_counter() - t0
-            line["kernel_launches"] = {"ckpt_pack": pack_ops.launches,
-                                       "flash_attention": attn_ops.launches,
-                                       "rglru_scan": scan_ops.launches}
-            emit(line)
+        dense, hybrid, train = earlier_paths(
+            api, cfg, hapi, hcfg, params, layout, ownership, device,
+            store_dir, hybrid_store, train_stores, fem_store)
+        del params, layout, ownership
+        torch.cuda.empty_cache()
+        # ---- the elastic path: its card leg with the counts at 0 just
+        # before it and read just after
+        t0 = time.perf_counter()
+        elastic, elastic_launches = phase_elastic(cfg, scratch)
+        elastic["phase_seconds"] = time.perf_counter() - t0
+        emit(elastic)
     finally:
         for d in [store_dir, hybrid_store, fem_store] + train_stores:
             shutil.rmtree(d, ignore_errors=True)
     launches = {"ckpt_pack": dense["ckpt_pack"] + hybrid["ckpt_pack"]
-                + train["total_launches"]["ckpt_pack"],
+                + train["total_launches"]["ckpt_pack"]
+                + elastic_launches["ckpt_pack"],
                 "flash_attention": dense["flash_attention"]
-                + train["total_launches"]["flash_attention"],
+                + train["total_launches"]["flash_attention"]
+                + elastic_launches["flash_attention"],
                 "rglru_scan": hybrid["rglru_scan"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1346,6 +1448,88 @@ def main(argv=None) -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def earlier_paths(api, cfg, hapi, hcfg, params, layout, ownership, device,
+                  store_dir, hybrid_store, train_stores, fem_store):
+    """The smollm serving path, the hybrid path, training, the FE path and
+    the post-processing sweep, each with the launch counts at 0 just before
+    it and read just after.  Returns the serving, hybrid and train
+    launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.ckpt_pack import ops as pack_ops
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.models.api import make_token_batch
+
+    with torch.inference_mode():
+        # ---- the smollm path: counts at 0 just before, read just after
+        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        ckpt, restored = phase_ckpt(api, params, store_dir, NRANKS, device)
+        requests = make_requests(cfg.vocab)
+        serve, results = phase_serve(api, restored, requests, SLOTS, device)
+        dense = {"ckpt_pack": pack_ops.launches,
+                 "flash_attention": attn_ops.launches}
+        ckpt["ckpt_pack_launches"] = dense["ckpt_pack"]
+        emit(ckpt)
+        serve["flash_attention_launches"] = dense["flash_attention"]
+        serve.update(check_served(api, restored, requests, results, SLOTS))
+        serve.update(check_model_logits(api, restored))
+        emit(serve)
+        if not all(dense.values()):
+            raise AssertionError(f"a kernel of the smollm path never "
+                                 f"launched: {dense}")
+        del params, restored, layout, ownership
+        torch.cuda.empty_cache()
+
+        # ---- the hybrid path: counts at 0 just before, read just after
+        hparams = hapi.init(
+            torch.Generator(device=device).manual_seed(SEED))
+        tokens = torch.from_numpy(make_token_batch(
+            hcfg, ShapeConfig("serve", HYBRID_P, HYBRID_B, "prefill"),
+            seed=SEED)["tokens"]).to(device)
+        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        hserve, kept = phase_hybrid_serve(hapi, hparams, tokens, device)
+        # one launch per RG-LRU layer of the one prefill
+        n_lru = sum(k == "lru" for k in hcfg.layer_kinds())
+        hserve["rglru_scan_launches"] = scan_ops.launches
+        emit(hserve)
+        if scan_ops.launches != n_lru:
+            raise AssertionError(f"rglru_scan launched {scan_ops.launches}"
+                                 f" times in one prefill, not {n_lru}")
+        hstate = phase_hybrid_state(hapi, hparams, kept, hybrid_store,
+                                    NRANKS, device)
+        hybrid = {"rglru_scan": scan_ops.launches,
+                  "ckpt_pack": pack_ops.launches}
+        hstate["ckpt_pack_launches"] = hybrid["ckpt_pack"]
+        emit(hstate)
+        if not all(hybrid.values()):
+            raise AssertionError(f"a kernel of the hybrid path never "
+                                 f"launched: {hybrid}")
+        phase_hybrid_consistency(hapi, hparams, tokens, kept)
+        del hparams, kept, tokens
+        torch.cuda.empty_cache()
+
+    # ---- the train path, outside inference mode (autograd needs it)
+    train, kept = phase_train(dataclasses.replace(cfg, remat=True),
+                              device, train_stores)
+    emit(train)
+
+    # ---- the FE path and the post-processing sweep: no kernel of the
+    # port runs on them (the engine's gathers are host code); the counts
+    # are set to 0 just before each and read just after all the same
+    for run in (lambda: phase_fem(device, fem_store),
+                lambda: phase_postprocess(train_stores[1], kept,
+                                          device)):
+        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        t0 = time.perf_counter()
+        line = run()
+        line["phase_seconds"] = time.perf_counter() - t0
+        line["kernel_launches"] = {"ckpt_pack": pack_ops.launches,
+                                   "flash_attention": attn_ops.launches,
+                                   "rglru_scan": scan_ops.launches}
+        emit(line)
+    return dense, hybrid, train
 
 
 if __name__ == "__main__":

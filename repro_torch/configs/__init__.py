@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import importlib
 
-#: the architectures this package has ported so far (the serving slices)
+#: the architectures this package has ported so far
 ARCHS = [
     "smollm_135m",
     "recurrentgemma_9b",
+    "qwen3_1_7b",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

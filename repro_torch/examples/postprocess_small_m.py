@@ -4,8 +4,9 @@ on the CUDA card by default.
 
 The N side trains the smollm smoke config for 20 steps and saves steps 10
 and 20 as a step series from 8 simulated ranks (``save_torch`` with
-``balanced_chunk_partition(layout, 8)``; the port has no meshes yet, so the
-ranks are simulated instead of the reference's (4, 2) mesh).  The M side, one
+``balanced_chunk_partition(layout, 8)``: simulated ranks in one process,
+where the reference trains on a (4, 2) mesh; ``examples/elastic_restart``
+runs the port's real processes).  The M side, one
 device, sweeps every committed step with ``core/resharder.sweep_steps``,
 loading ONLY the embedding table and the final norm (one host-to-device copy
 per array) without touching the rest of the state and without knowing the

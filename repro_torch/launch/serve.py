@@ -3,8 +3,9 @@
 Greedy-decodes a batch of synthetic prompts and prints one JSON line of
 per-phase timings, as the JAX package's ``launch/serve.py`` does.  Runs on
 the CUDA card; ``--smoke --device cpu`` runs the reduced config on the CPU
-through the plain PyTorch versions.  The port has no meshes yet: the mesh
-flags are accepted and must stay at one device.
+through the plain PyTorch versions.  Serving has no mesh path yet (the
+sharded prefill and decode steps are still to port): the mesh flags are
+accepted and must stay at one device.
 
     python -m repro_torch.launch.serve --arch smollm_135m
     python -m repro_torch.launch.serve --arch recurrentgemma_9b
@@ -94,7 +95,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.production_mesh or args.data_mesh * args.model_mesh != 1:
-        ap.error("the port runs on one device: meshes are not ported yet")
+        ap.error("serving runs on one device: its mesh path is not ported "
+                 "yet")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

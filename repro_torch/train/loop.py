@@ -7,7 +7,17 @@ device-to-host copy) and writes it through the N-to-M ``TensorCheckpoint``
 on a background thread (double-buffered; the commit marker lands last, so
 a crash mid-write falls back to the previous committed step).  A restart
 goes through ``restore_latest``, the paper's load path, onto this process's
-device.
+device, or, for a sharded step, onto the placements of the CURRENT mesh,
+whatever mesh and process count saved it.
+
+Sharded over a mesh of ``torch.distributed`` processes, every process
+takes its data rank's rows of each global batch and snapshots its own
+shards at a save, and rank 0 alone opens the store: it gathers the
+snapshots and owns the ``AsyncCheckpointer``; the other processes hand
+their snapshot over and go on.  Every store call rank 0 makes for all
+(``distrib.group.root_call``) broadcasts its outcome, so when rank 0's
+writer dies every process raises at the same save, or at the final wait,
+instead of waiting at a collective.
 
 The data pipeline state (next step index) and its seed ride in the
 checkpoint attrs, so a restart resumes the exact token stream.  The store
@@ -30,14 +40,16 @@ from repro_torch.core.comm import Comm
 from repro_torch.core.store import DatasetStore
 from repro_torch.core.tensor_ckpt import TensorCheckpoint
 from repro_torch.core.torch_io import (
+    gather_snapshot,
+    is_sharded,
     layout_from_torch,
     load_torch,
-    save_torch,
-    snapshot_torch,
 )
 from repro_torch.device import resolve_device
+from repro_torch.distrib import group as pg
+from repro_torch.distrib.rules import local_box
 from repro_torch.train.data import SyntheticLM
-from repro_torch.train.step import TrainStep
+from repro_torch.train.step import TrainStep, shard_state
 
 
 class SimulatedPreemption(RuntimeError):
@@ -58,8 +70,12 @@ class TrainerConfig:
 class TorchTrainer:
     """Runs a :class:`TrainStep` on ``device`` (the card unless the caller
     asks for the CPU).  ``save_log`` records, per save, the synchronous
-    snapshot's seconds (device-to-host included); the async writer's own
-    ``job_log`` has the write seconds."""
+    snapshot's seconds (device-to-host included, and for a sharded step the
+    gather to rank 0); the async writer's own ``job_log`` (rank 0's) has
+    the write seconds.  A sharded step (``step.mesh``) runs with one
+    process per device of its mesh, every process making the same calls;
+    ``init_state_fn`` then returns the whole state, alike on every process
+    (made from one seed), and each keeps its shards of it."""
 
     def __init__(self, step: TrainStep, data: SyntheticLM,
                  cfg: TrainerConfig, init_state_fn: Callable[[], dict],
@@ -69,26 +85,37 @@ class TorchTrainer:
         self.cfg = cfg
         self.init_state_fn = init_state_fn
         self.device = resolve_device(device)
-        self.comm = Comm(1)
+        self.mesh = step.mesh
+        self.comm = Comm(pg.world())
         self.history: list[dict] = []
         self.save_log: list[dict] = []
         self._async: AsyncCheckpointer | None = None
+        self._ck: TensorCheckpoint | None = None     # rank 0's
 
     # ------------------------------------------------------------ ckpt io
     def _open_ckpt(self, mode: str) -> TensorCheckpoint:
         make = self.cfg.store_factory or DatasetStore
         return TensorCheckpoint(make(self.cfg.ckpt_dir, mode))
 
+    def _committed(self) -> list[int]:
+        try:
+            return self._open_ckpt("r").steps()
+        except FileNotFoundError:
+            return []
+
+    def init_state(self) -> dict:
+        """The cold-start state, on this process's shards if sharded."""
+        state = self.init_state_fn()
+        if self.mesh is not None and not is_sharded(state):
+            state = shard_state(state, self.mesh, self.step.state_shardings)
+        return state
+
     def restore_latest(self) -> tuple[dict, int]:
         """(state on this trainer's device, start_step).  Fresh init if no
         committed checkpoint exists — the cold-start path."""
-        try:
-            ck = self._open_ckpt("r")
-            steps = ck.steps()
-        except FileNotFoundError:
-            steps = []
+        steps = pg.root_call(self._committed)
         if not steps:
-            return self.init_state_fn(), 0
+            return self.init_state(), 0
         return self.restore_from(steps[-1])
 
     def restore_from(self, step: int) -> tuple[dict, int]:
@@ -98,13 +125,21 @@ class TorchTrainer:
         is append-only, so a run resumed from an earlier step can only save
         steps beyond the last committed one."""
         step = int(step)
-        ck = self._open_ckpt("a")
-        if step not in ck.steps():
-            raise ValueError(
-                f"restore_from({step}): step is not committed "
-                f"(committed steps: {ck.steps()})")
+
+        ck = None                       # rank 0's
+
+        def open_committed():
+            nonlocal ck
+            ck = self._open_ckpt("a")
+            if step not in ck.steps():
+                raise ValueError(
+                    f"restore_from({step}): step is not committed "
+                    f"(committed steps: {ck.steps()})")
+
+        pg.root_call(open_committed)
         state = load_torch(ck, self.step.abstract_state, step,
-                           device=self.device)
+                           device=self.device, mesh=self.mesh,
+                           shardings=self.step.state_shardings)
         return state, step
 
     def _save(self, state: dict, step_idx: int) -> None:
@@ -113,45 +148,70 @@ class TorchTrainer:
         step bracketed by ``begin_step``/``commit_step``: the manifest
         entry is the commit marker, so a crash mid-write falls back to the
         previous committed step, and unchanged arrays dedup against the
-        stream (stored once, aliased in the manifest)."""
-        ck = self._open_ckpt("a" if self._ckpt_exists() else "w")
-        if not ck.store.has_attrs("layout"):
-            ck.save_layout(layout_from_torch(state),
-                           extra={"pipeline": self.data.state(step_idx)})
+        stream (stored once, aliased in the manifest).
+
+        Rank 0 opens the store (and writes the layout on the first save),
+        every process snapshots its owned shards (one process: the whole
+        state), rank 0 gathers them and writes them, synchronously or
+        through its async writer.  When rank 0 fails, every process raises
+        here."""
         t0 = time.perf_counter()
-        if not self.cfg.async_ckpt:
-            ck.store.begin_step(step_idx)
-            save_torch(ck, state, step_idx)
-            ck.store.commit_step()
-            self.save_log.append({"step": step_idx, "async": False,
-                                  "seconds": time.perf_counter() - t0})
-            return
-        if self._async is None or self._async.ckpt.store.root != ck.store.root:
-            self._async = AsyncCheckpointer(ck, self.comm)
-        per_rank = snapshot_torch(ck.layout(), state)
+
+        def open_layout():
+            ck = self._open_ckpt("a" if self._ckpt_exists() else "w")
+            if not ck.store.has_attrs("layout"):
+                ck.save_layout(layout_from_torch(state),
+                               extra={"pipeline": self.data.state(step_idx)})
+            self._ck = ck
+            return ck.layout()
+
+        per_rank = gather_snapshot(pg.root_call(open_layout), state)
         t1 = time.perf_counter()
-        self._async.begin_step(step_idx)
-        self._async.submit(per_rank, step_idx)
-        self._async.commit_step()
-        self.save_log.append({"step": step_idx, "async": True,
+
+        def write():
+            ck = self._ck
+            if not self.cfg.async_ckpt:
+                ck.store.begin_step(step_idx)
+                ck.save_state(per_rank, self.comm, step_idx)
+                ck.store.commit_step()
+                return
+            if (self._async is None
+                    or self._async.ckpt.store.root != ck.store.root):
+                self._async = AsyncCheckpointer(ck, self.comm)
+            self._async.begin_step(step_idx)
+            self._async.submit(per_rank, step_idx)
+            self._async.commit_step()
+
+        pg.root_call(write)
+        self.save_log.append({"step": step_idx, "async": self.cfg.async_ckpt,
                               "snapshot_seconds": t1 - t0,
                               "seconds": time.perf_counter() - t0})
 
     def wait_for_writes(self) -> None:
-        if self._async is not None:
-            self._async.wait()
+        """Drain the async writer; for a sharded step every process calls
+        this, and raises if rank 0's writer failed."""
+        pg.root_call(
+            lambda: self._async is not None and self._async.wait())
 
     def _ckpt_exists(self) -> bool:
         return os.path.exists(os.path.join(self.cfg.ckpt_dir, "store.json"))
 
     # -------------------------------------------------------------- batches
     def _device_batch(self, step_idx: int) -> dict:
+        """The step's inputs on this trainer's device: the global batch, or
+        for a sharded step this process's rows of it (its box of each
+        input's batch placements; ``SyntheticLM.shard_rows`` cuts the same
+        rows)."""
         batch = self.data.batch(step_idx)
         out = {}
         for k, spec in self.step.abstract_batch.items():
             # extra inputs (e.g. whisper enc_frames) default to zeros
             arr = (batch[k] if k in batch
                    else np.zeros(spec.shape, dtype=np.dtype(spec.dtype)))
+            if self.mesh is not None:
+                arr = np.ascontiguousarray(arr[local_box(
+                    spec.shape, self.mesh,
+                    self.step.batch_shardings[k]).slices()])
             out[k] = torch.from_numpy(arr).to(self.device)
         return out
 

@@ -28,6 +28,7 @@ import pytest
 import torch
 from helpers.ast_copy import normalised
 from helpers.hypothesis_shim import given, settings, strategies as st
+from helpers.torch_faultstore import FaultStore, SimulatedCrash
 
 import repro.core.async_io as ref_async_io
 import repro.core.directory as ref_directory
@@ -620,39 +621,11 @@ def test_fem_steps_legacy_sync_store_without_log(tmp_path):
     fck.load_mesh("m", Comm(3))
 
 
-class _Crash(BaseException):
-    """The simulated process death (a BaseException, as the reference's
-    fault store raises, so no ``except Exception`` swallows it)."""
-
-
-class _FaultStore(DatasetStore):
-    """The port's store, dying at its ``kill_after``-th mutating operation
-    and at every one after it; ``ops_seen`` counts the completed ones."""
-
-    def __init__(self, root, mode="w", kill_after=None):
-        super().__init__(root, mode)
-        self.kill_after, self.ops_seen, self.dead = kill_after, 0, False
-
-    def _op(self):
-        if self.dead or (self.kill_after is not None
-                         and self.ops_seen >= self.kill_after):
-            self.dead = True
-            raise _Crash(f"simulated death at mutating op {self.ops_seen}")
-        self.ops_seen += 1
-
-
-for _name in ("create", "write_rows", "write_plan", "write_rows_at",
-              "set_attrs", "commit_step"):
-    def _wrapped(self, *a, _name=_name, **kw):
-        self._op()
-        return getattr(DatasetStore, _name)(self, *a, **kw)
-    setattr(_FaultStore, _name, _wrapped)
-
 FE_FIELDS = (_field, _field2)
 
 
 def _run_fem_seq(root, n, plexes, kill_after):
-    store = _FaultStore(str(root), "w", kill_after)
+    store = FaultStore(str(root), "w", kill_after_ops=kill_after)
     ac, crashed = None, False
     try:
         ac = AsyncCheckpointer(FEMCheckpoint(store), Comm(n))
@@ -663,12 +636,12 @@ def _run_fem_seq(root, n, plexes, kill_after):
             ac.save_function("m", "f", [interpolate(sp, fn) for sp in spaces],
                              time_index=t)
         ac.wait()
-    except (_Crash, RuntimeError):
+    except (SimulatedCrash, RuntimeError):
         crashed = True
     if ac is not None:
         try:
             ac.wait()
-        except (_Crash, RuntimeError):
+        except (SimulatedCrash, RuntimeError):
             pass
     store.close()
     return crashed, store.ops_seen
