@@ -5,7 +5,9 @@ Drives the port's two serving paths, smollm-135m at full width, restored
 N-to-M, and recurrentgemma-9b at full width and full depth, then its
 training path: smollm-135m trained on the card, killed, and resumed from
 its N-to-M checkpoint; then the paper's own finite-element path at full
-size and the post-processing sweep of the training run's checkpoint.
+size and the post-processing sweep of the training run's checkpoint; the
+restart across process counts; and the MoE family, granite-moe-3b-a800m
+served at full size and trained at 2 layers.
 
   device   the card's name and power limit (nvidia-smi);
   build    the hand-written kernels, compiled from this checkout's sources;
@@ -52,6 +54,23 @@ size and the post-processing sweep of the training run's checkpoint.
            processes held, trains to 4 through the flash kernel and saves
            step 4 through ckpt_pack; M = 2 CPU processes (mesh (1, 2))
            restore step 4, bit-equal to the card's state.
+  moe_serve  granite-moe-3b-a800m at full width and depth (32 layers, 40
+           experts padded to 48, top-8; seeded weights on the card) through
+           the launcher's step builders on a (1, 1) mesh, so every MoE layer
+           runs the expert-parallel ``moe_ffn_ep`` (its calls are counted):
+           B 4, prompt 512, 32 decode steps; one MoE layer against the
+           dense oracle at capacity
+           factor E, the logits with kernel attention against naive
+           attention, and a second prefill bit-equal to the first;
+  moe_state  that prefill's KV cache saved as N=4 ranks and restored 4-to-1
+           onto the card bit for bit; 8 decode steps from it give the
+           served tokens;
+  moe_train  granite at full width, depth cut to 2 layers, B 4, S 1024,
+           through the sharded step on a (1, 1) NCCL mesh in deterministic
+           mode with the flash kernel under autograd and ``moe_ffn_ep`` in
+           every layer (counted): 4 steps (finite falling loss, positive
+           aux), then steps 1-2 twice from one seed, bit-equal in every
+           array.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of a path that never launched fails the run (the fem and
@@ -165,6 +184,25 @@ ELASTIC_LAYERS, ELASTIC_B, ELASTIC_S, ELASTIC_STEPS = 2, 4, 256, 4
 ELASTIC_MESH_N, ELASTIC_MESH_CARD, ELASTIC_MESH_M = (2, 2), (1, 1), (1, 2)
 ELASTIC_KILL_AFTER_OPS = 4
 ELASTIC_PG_TIMEOUT = 900
+# the MoE path: granite-moe-3b-a800m at full width and depth (40 experts
+# padded to 48, top-8) served through the launcher's step builders at B 4,
+# prompt 512, 32 decode steps; its KV cache saved as 4 ranks and restored
+# on this card, then MOE_STATE_DECODE decode steps from it; one MoE layer
+# checked against the dense oracle at capacity factor E on MOE_LAYER_B x
+# MOE_LAYER_S tokens (the oracle's one-hot dispatch is [B, S, E, C])
+MOE_B, MOE_P, MOE_G = 4, 512, 32
+MOE_STATE_DECODE = 8
+MOE_LAYER_B, MOE_LAYER_S = 4, 128
+# |EP - dense oracle| <= MOE_RTOL * max |dense| for that layer in bf16: the
+# oracle sums a token's weighted expert outputs in one product over (E, C),
+# the EP path gathers them and sums over top_k; the bf16 tolerance
+MOE_RTOL = 2e-2
+# the MoE train path: granite at full width with its depth cut from 32 to 2
+# layers, B 4, S 1024, AdamW under warmup_cosine(3e-3, warmup 2, total 4),
+# deterministic mode, through the sharded step on a (1, 1) NCCL mesh; steps
+# 1-2 run twice from one seed and must agree bit for bit
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 2, 4, 1024, 4
+MOE_REPEAT_STEPS = 2
 
 
 def emit(obj) -> None:
@@ -376,6 +414,9 @@ def check_flash_attention(cfg) -> dict:
 
     # the hd 128 case: B 4, S 2048, 16 query and 8 kv heads
     HD128 = (4, 2048, 16, 8, 128)
+    # granite-moe-3b-a800m's heads (24 query, 8 kv, hd 64) at its serving
+    # prefill (B 4, S 512) and its train step (B 4, S 1024)
+    GRANITE = [(MOE_B, MOE_P, 24, 8, 64), (MOE_TRAIN_B, MOE_TRAIN_S, 24, 8, 64)]
     cases = [
         # B, Sq, Sk, q_offset, window, softcap, (Hq, Hkv, hd)
         (4, 2048, 2048, 0, 0, 0.0, ()),    # the slice's prefill shape
@@ -385,7 +426,7 @@ def check_flash_attention(cfg) -> dict:
         (1, 333, 333, 0, 0, 50.0, ()),     # logit softcap
         (ELASTIC_B, ELASTIC_S, ELASTIC_S, 0, 0, 0.0, ()),  # the elastic step
         (HD128[0], HD128[1], HD128[1], 0, 0, 0.0, HD128[2:]),
-    ] + [(1, P, P, 0, 0, 0.0, ()) for P in sorted({p for p, _ in REQUESTS})]
+    ] + [(B, S, S, 0, 0, 0.0, h) for B, S, *h in GRANITE] + [(1, P, P, 0, 0, 0.0, ()) for P in sorted({p for p, _ in REQUESTS})]
     worst, results = 0.0, []
     for B, Sq, Sk, qoff, win, cap, heads in cases:
         q, k, v = qkv(B, Sq, Sk, *heads)
@@ -446,6 +487,7 @@ def check_flash_attention(cfg) -> dict:
     P = max(p for p, _ in REQUESTS)
     longest = timed(1, P, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
     hd128 = timed(*HD128)
+    granite = [timed(*shape) for shape in GRANITE]
     return {"name": "flash_attention", "route": "cuda",
             "source": "repro_torch/kernels/flash_attention/kernel.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
@@ -453,6 +495,7 @@ def check_flash_attention(cfg) -> dict:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "timed_at": main, "at_longest_prompt": longest, "hd128": hd128,
+            "granite": granite,
             "tolerance": {"atol": ATTN_ATOL, "rtol": ATTN_RTOL},
             "cases": results}
 
@@ -719,15 +762,20 @@ def check_served(api, params, requests, results, slots: int) -> dict:
 
 def check_model_logits(api, params) -> dict:
     """The full model's prefill logits through the kernel vs the plain
-    naive attention on the card: finite, same shape, close."""
+    naive attention on the card, both through the serving step builder (an
+    MoE model's layers then run ``moe_ffn_ep``): finite, same shape,
+    close."""
     rng = np.random.default_rng(SEED + 1)
     tokens = torch.from_numpy(
         rng.integers(0, api.cfg.vocab, size=(2, 96)).astype(np.int32)).cuda()
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.models.api import build_model
+    from repro_torch.train.step import make_prefill_step
 
     naive = build_model(dataclasses.replace(api.cfg, attention_impl="naive"))
-    got, _ = api.prefill(params, {"tokens": tokens})
-    want, _ = naive.prefill(params, {"tokens": tokens})
+    shape = ShapeConfig("logits", 96, 2, "prefill")
+    got, _ = make_prefill_step(api, shape)(params, {"tokens": tokens})
+    want, _ = make_prefill_step(naive, shape)(params, {"tokens": tokens})
     if got.shape != (2, api.cfg.vocab) or not torch.isfinite(got).all():
         raise AssertionError(f"prefill logits {tuple(got.shape)} not finite")
     diff = float((got - want).abs().max())
@@ -1365,6 +1413,307 @@ def phase_elastic(cfg, scratch: Path) -> tuple[dict, dict]:
             "bit_exact_restores": True}, launches
 
 
+# ----------------------------------------------------------------- MoE path
+def real_params(cfg, params) -> int:
+    """Parameters less the phantom experts' (their router columns and
+    expert weights, which nothing routes to)."""
+    E, real = cfg.moe.num_experts_padded, cfg.moe.num_experts
+    return sum(t.numel() // E * real
+               if name.startswith("we_") or name == "router" else t.numel()
+               for name, t in params.items())
+
+
+def check_moe_layer(cfg, params, device) -> dict:
+    """Layer 0's MoE FFN at granite's width on the card: ``moe_ffn_ep`` (a
+    model axis of 1) against the dense one-hot oracle at capacity factor
+    E, where nothing drops, on seeded activations."""
+    from repro_torch.models import moe
+    from repro_torch.train.step import ONE_DEVICE
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    x = torch.randn((MOE_LAYER_B, MOE_LAYER_S, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    w = [params[k][0] for k in ("router", "we_gate", "we_up", "we_down")]
+    kw = dict(top_k=cfg.moe.top_k, num_real=cfg.moe.num_experts,
+              capacity_factor=float(cfg.moe.num_experts_padded))
+    y_ep, aux_ep = moe.moe_ffn_ep(x, *w, mesh=ONE_DEVICE, **kw)
+    y_dn, aux_dn = moe.moe_ffn(x, *w, **kw)
+    torch.cuda.synchronize()
+    diff = float((y_ep.float() - y_dn.float()).abs().max())
+    scale = float(y_dn.float().abs().max())
+    line = {"tokens": MOE_LAYER_B * MOE_LAYER_S, "rtol": MOE_RTOL,
+            "max_abs_diff": diff, "max_abs_dense": scale,
+            "aux_ep": float(aux_ep), "aux_dense": float(aux_dn)}
+    if not torch.isfinite(y_ep).all() or diff > MOE_RTOL * scale:
+        raise AssertionError(f"moe_ffn_ep against the dense oracle: {line}")
+    return line
+
+
+def phase_moe_serve(api, params, tokens, device) -> tuple[dict, dict]:
+    """One batched prefill and MOE_G lockstep decode steps through the
+    launcher's ``serve_batch`` (the step builders on a (1, 1) mesh, so every
+    MoE layer runs ``moe_ffn_ep``); the MoE layer against the dense oracle,
+    the logits with kernel attention against naive attention, and a second
+    prefill bit-equal to the first.  Returns the phase line and the
+    prefill's cache and the served tokens."""
+    from repro_torch.launch.serve import serve_batch
+
+    kept = {}
+
+    def on_prefill(logits, cache):
+        kept["cache"] = {k: v.clone() for k, v in cache.items()}
+        kept["logits"] = logits.clone()
+
+    B, P = tokens.shape
+    torch.cuda.reset_peak_memory_stats()
+    out, timings = serve_batch(api, params, tokens, MOE_G, device,
+                               on_prefill=on_prefill)
+    if out.shape != (B, MOE_G + 1) or not (
+            (out >= 0) & (out < api.cfg.vocab)).all():
+        raise AssertionError(f"served tokens {out.shape} out of range")
+    if not torch.isfinite(kept["logits"]).all():
+        raise AssertionError("prefill logits are not finite")
+    kept["tokens"] = out
+    t_pre, t_dec = timings["prefill_seconds"], timings["decode_seconds"]
+    line = {"phase": "moe_serve", "arch": api.cfg.arch,
+            "params": sum(t.numel() for t in params.values()),
+            "real_params": real_params(api.cfg, params),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in params.values()),
+            "layers": api.cfg.num_layers,
+            "experts": [api.cfg.moe.num_experts,
+                        api.cfg.moe.num_experts_padded],
+            "top_k": api.cfg.moe.top_k, "batch": B, "prompt_len": P,
+            "decode_steps": MOE_G, "prefill_seconds": t_pre,
+            "prefill_tokens_per_s": B * P / t_pre,
+            "decode_seconds": t_dec,
+            "decode_tokens_per_s": B * MOE_G / t_dec,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "sample_tokens": out[0, :8].tolist()}
+    return line, kept
+
+
+def check_moe_serve(api, params, tokens, kept, device) -> dict:
+    """The checks of ``moe_serve`` that run after its launches are read."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.step import make_prefill_step
+
+    B, P = tokens.shape
+    with torch.inference_mode():
+        layer = check_moe_layer(api.cfg, params, device)
+        logits = check_model_logits(api, params)
+        again, cache = make_prefill_step(
+            api, ShapeConfig("serve", P, B, "prefill"),
+            cache_len=P + MOE_G)(params, {"tokens": tokens})
+    same = _same_bits(again, kept["logits"]) and all(
+        _same_bits(cache[k], kept["cache"][k]) for k in cache)
+    if not same:
+        raise AssertionError("a second prefill of the same prompts differs "
+                             "from the first")
+    return {"ep_vs_dense_layer": layer, **logits,
+            "repeated_prefill_bit_equal": True}
+
+
+def phase_moe_state(api, params, kept, store_dir: str, nranks: int,
+                    device) -> dict:
+    """The prefill's KV cache saved as ``nranks`` ranks, restored onto this
+    card bit for bit; MOE_STATE_DECODE decode steps from it must give the
+    tokens the server gave."""
+    from repro_torch.launch.serve import decode_steps
+
+    cache, out = kept["cache"], kept["tokens"]
+    line, restored = save_restore(
+        cache, api.abstract_cache(out.shape[0], MOE_P + MOE_G), store_dir,
+        nranks, device)
+    first = torch.from_numpy(out[:, :1].copy()).to(device)
+    with torch.inference_mode():
+        toks = decode_steps(api, params, restored, first, MOE_P,
+                            MOE_STATE_DECODE, device)
+    if not np.array_equal(torch.cat(toks, dim=1).cpu().numpy(),
+                          out[:, :MOE_STATE_DECODE + 1]):
+        raise AssertionError("decoding from the restored cache gave other "
+                             "tokens than the server")
+    return {"phase": "moe_state",
+            "arrays": {k: [list(v.shape), str(v.dtype).removeprefix("torch.")]
+                       for k, v in cache.items()},
+            **line, "decode_steps_from_restored": MOE_STATE_DECODE,
+            "continued_tokens_identical": True}
+
+
+def phase_moe_train(cfg, device) -> dict:
+    """Granite at full width, depth cut to MOE_TRAIN_LAYERS, trained
+    through the sharded step on a (1, 1) NCCL mesh in deterministic mode:
+    MOE_TRAIN_STEPS steps, then steps 1..MOE_REPEAT_STEPS again from the
+    same seed, bit-equal in every array.  The launch counts are set to 0
+    by the caller just before and read just after."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.device import use_deterministic_algorithms
+    from repro_torch.distrib.rules import local_box
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.train import (AdamW, SyntheticLM, init_train_state,
+                                   make_train_step, warmup_cosine)
+    from repro_torch.train.step import shard_state
+
+    use_deterministic_algorithms()
+    api = build_model(cfg)
+    init_distributed("cuda", rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        step = make_train_step(
+            api, AdamW(), functools.partial(
+                warmup_cosine, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                total=MOE_TRAIN_STEPS),
+            ShapeConfig("train", MOE_TRAIN_S, MOE_TRAIN_B, "train"),
+            mesh=mesh)
+        data = SyntheticLM(cfg.vocab, MOE_TRAIN_S, MOE_TRAIN_B, seed=SEED)
+
+        def run(steps):
+            state = shard_state(init_train_state(
+                api, AdamW(), torch.Generator(device=device).manual_seed(
+                    SEED)), mesh, step.state_shardings)
+            history, seconds = [], []
+            for i in range(steps):
+                batch = {k: torch.from_numpy(np.ascontiguousarray(v[
+                    local_box(v.shape, mesh, step.batch_shardings[k])
+                    .slices()])).to(device)
+                    for k, v in data.batch(i).items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                history.append({k: float(v) for k, v in m.items()})
+            return {k: t.to_local() for k, t in state.items()}, history, \
+                seconds
+
+        torch.cuda.reset_peak_memory_stats()
+        first, history, seconds = run(MOE_TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        # the state after steps 1..MOE_REPEAT_STEPS, twice from one seed
+        twice = [run(MOE_REPEAT_STEPS)[0] for _ in range(2)]
+    finally:
+        torch.distributed.destroy_process_group()
+    losses = [h["loss"] for h in history]
+    aux = [h["aux"] for h in history]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the MoE run's loss is not finite and "
+                             f"falling: {losses}")
+    if not all(np.isfinite(a) and a > 0 for a in aux):
+        raise AssertionError(f"the aux loss is not finite and positive: "
+                             f"{aux}")
+    differ = [k for k in twice[0] if not _same_bits(twice[0][k],
+                                                    twice[1][k])]
+    if differ:
+        raise AssertionError(f"two runs of steps 1-{MOE_REPEAT_STEPS} from "
+                             f"one seed differ in {differ}")
+    n_params = sum(t.numel() for k, t in first.items()
+                   if k.startswith("params/"))
+    return {"phase": "moe_train", "arch": cfg.arch,
+            "layers": cfg.num_layers,
+            "params": n_params, "batch": MOE_TRAIN_B, "seq": MOE_TRAIN_S,
+            "mesh": [1, 1], "attention_impl": cfg.attention_impl,
+            "remat": cfg.remat,
+            "deterministic": torch.are_deterministic_algorithms_enabled(),
+            "losses": losses, "aux": aux,
+            "xent": [h["xent"] for h in history],
+            "grad_norm": [h["grad_norm"] for h in history],
+            "step_ms": [t * 1e3 for t in seconds],
+            "step_ms_median_2_on": float(np.median(seconds[1:])) * 1e3,
+            "tokens_per_s": MOE_TRAIN_B * MOE_TRAIN_S
+            / float(np.median(seconds[1:])),
+            "peak_memory_allocated": peak,
+            "repeat_bit_equal_arrays": len(twice[0]),
+            "steps_run": MOE_TRAIN_STEPS + 2 * MOE_REPEAT_STEPS}
+
+
+def moe_paths(device, store_dir: str) -> dict:
+    """The three MoE phases, each path with the launch counts at 0 just
+    before it and read just after.  Returns the launches per kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.ckpt_pack import ops as pack_ops
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model, make_token_batch
+
+    # as the serving launcher does: prefill attention through the kernel
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"),
+                              attention_impl="pallas")
+    api = build_model(cfg)
+    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0}
+
+    def read():
+        got = {"ckpt_pack": pack_ops.launches,
+               "flash_attention": attn_ops.launches,
+               "rglru_scan": scan_ops.launches}
+        for k, n in got.items():
+            launches[k] += n
+        return got
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator(device=device).manual_seed(SEED))
+        tokens = torch.from_numpy(make_token_batch(
+            cfg, ShapeConfig("serve", MOE_P, MOE_B, "prefill"),
+            seed=SEED)["tokens"]).to(device)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        # ---- moe_serve: counts at 0 just before, read just after
+        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        moe.calls = 0
+        serve, kept = phase_moe_serve(api, params, tokens, device)
+        serve["kernel_launches"] = read()
+        serve["moe_ffn_ep_calls"] = moe.calls
+        if serve["kernel_launches"]["flash_attention"] != cfg.num_layers:
+            raise AssertionError(f"flash_attention launched "
+                                 f"{serve['kernel_launches']} in one "
+                                 f"prefill of {cfg.num_layers} layers")
+        if moe.calls != cfg.num_layers * (1 + MOE_G):
+            raise AssertionError(f"moe_ffn_ep ran {moe.calls} times in a "
+                                 f"prefill and {MOE_G} decode steps of "
+                                 f"{cfg.num_layers} layers")
+        serve["init_seconds"] = t_init
+        serve.update(check_moe_serve(api, params, tokens, kept, device))
+        serve["phase_seconds"] = time.perf_counter() - t0
+        emit(serve)
+        # ---- moe_state: counts at 0 just before, read just after
+        t0 = time.perf_counter()
+        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        state = phase_moe_state(api, params, kept, store_dir, NRANKS, device)
+        state["kernel_launches"] = read()
+        if not state["kernel_launches"]["ckpt_pack"]:
+            raise AssertionError("ckpt_pack never launched in the MoE "
+                                 "cache's save")
+        state["phase_seconds"] = time.perf_counter() - t0
+        emit(state)
+        del params, kept, tokens
+        torch.cuda.empty_cache()
+
+    # ---- moe_train, outside inference mode (autograd needs it)
+    t0 = time.perf_counter()
+    tcfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
+    pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+    moe.calls = 0
+    train = phase_moe_train(tcfg, device)
+    train["layers_cut_from"] = cfg.num_layers
+    train["kernel_launches"] = read()
+    train["moe_ffn_ep_calls"] = moe.calls
+    # a remat span runs its layers again in the backward pass
+    per_step = (2 if tcfg.remat else 1) * tcfg.num_layers
+    for what, n in (("flash_attention", train["kernel_launches"]
+                     ["flash_attention"]), ("moe_ffn_ep", moe.calls)):
+        if n != per_step * train["steps_run"]:
+            raise AssertionError(f"{what} ran {n} times in "
+                                 f"{train['steps_run']} steps, not "
+                                 f"{per_step} a step")
+    train["phase_seconds"] = time.perf_counter() - t0
+    emit(train)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not (ROOT / "repro_torch" / "__init__.py").exists():
@@ -1404,6 +1753,7 @@ def main(argv=None) -> int:
     train_stores = [tempfile.mkdtemp(prefix="train_", dir=scratch)
                     for _ in range(2)]
     fem_store = tempfile.mkdtemp(prefix="fem_", dir=scratch)
+    moe_store = tempfile.mkdtemp(prefix="moe_", dir=scratch)
     try:
         with torch.inference_mode():
             params = api.init(torch.Generator(device=device).manual_seed(SEED))
@@ -1428,15 +1778,20 @@ def main(argv=None) -> int:
         elastic, elastic_launches = phase_elastic(cfg, scratch)
         elastic["phase_seconds"] = time.perf_counter() - t0
         emit(elastic)
+        torch.cuda.empty_cache()
+        # ---- the MoE paths: granite-moe-3b-a800m served, its cache
+        # restarted 4 -> 1, and trained at 2 layers
+        moe_launches = moe_paths(device, moe_store)
     finally:
-        for d in [store_dir, hybrid_store, fem_store] + train_stores:
+        for d in [store_dir, hybrid_store, fem_store, moe_store] + train_stores:
             shutil.rmtree(d, ignore_errors=True)
     launches = {"ckpt_pack": dense["ckpt_pack"] + hybrid["ckpt_pack"]
                 + train["total_launches"]["ckpt_pack"]
-                + elastic_launches["ckpt_pack"],
+                + elastic_launches["ckpt_pack"] + moe_launches["ckpt_pack"],
                 "flash_attention": dense["flash_attention"]
                 + train["total_launches"]["flash_attention"]
-                + elastic_launches["flash_attention"],
+                + elastic_launches["flash_attention"]
+                + moe_launches["flash_attention"],
                 "rglru_scan": hybrid["rglru_scan"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -15,6 +15,7 @@ ARCHS = [
     "smollm_135m",
     "recurrentgemma_9b",
     "qwen3_1_7b",
+    "granite_moe_3b_a800m",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

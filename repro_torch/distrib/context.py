@@ -1,12 +1,13 @@
 """Step-time mesh context, the counterpart of the JAX package's
 ``distrib/context.py``.
 
-A step builder that partitions its compute over a mesh installs a
-:class:`MeshContext` for the duration of a step, and model code reads it
-through :func:`mesh_context`; with none installed the models run their
-mesh-free paths, as in the reference.  The port's sharded step does not
-partition its compute yet (every process runs the whole step on gathered
-parameters: ``train/step.py``), so it installs none.
+Every step builder (``train/step.py``: the train step, on one device or
+sharded, and the prefill and decode steps) installs a :class:`MeshContext`
+for the duration of a step, as the reference's builders do, and model code
+reads it through :func:`mesh_context`: the MoE layer
+(``models/transformer.py::_ffn``) runs the expert-parallel
+``moe_ffn_ep`` over the context's mesh when its config asks for it.  With
+none installed the models run their mesh-free paths, as in the reference.
 """
 
 from __future__ import annotations
@@ -20,10 +21,9 @@ _STATE = threading.local()
 
 @dataclasses.dataclass(frozen=True)
 class MeshContext:
-    mesh: object                             # torch DeviceMesh
+    mesh: object          # torch DeviceMesh, or {axis: 1} for one device
     dp_axes: tuple[str, ...] = ("data",)     # batch-parallel mesh axes
     ep_axis: str = "model"                   # expert-parallel mesh axis
-    fsdp_axis: object = "data"               # parameter-shard (ZeRO-3) axes
     rules: object = None                     # RuleTable for activation hints
 
     @property
@@ -37,8 +37,10 @@ def shard_hint(x, logical_axes: tuple[str | None, ...]):
     The reference constrains an activation's sharding here and returns the
     same values; GSPMD then partitions the compute around it.  The port's
     sharded step gathers the parameters and runs the whole step on every
-    process (``train/step.py``), so no activation is sharded and the hint
-    returns ``x`` as it is: the values are the reference's either way."""
+    process (``train/step.py``; only the MoE layer's experts are split over
+    the model axis, by ``moe_ffn_ep`` itself), so no activation is sharded
+    and the hint returns ``x`` as it is: the values are the reference's
+    either way."""
     return x
 
 

@@ -1,14 +1,17 @@
 """Serving launcher: batched prefill + decode driver.
 
 Greedy-decodes a batch of synthetic prompts and prints one JSON line of
-per-phase timings, as the JAX package's ``launch/serve.py`` does.  Runs on
-the CUDA card; ``--smoke --device cpu`` runs the reduced config on the CPU
-through the plain PyTorch versions.  Serving has no mesh path yet (the
-sharded prefill and decode steps are still to port): the mesh flags are
-accepted and must stay at one device.
+per-phase timings, as the JAX package's ``launch/serve.py`` does: through
+the step builders (``train/step.py::make_prefill_step`` and
+``make_decode_step``) on a (1, 1) mesh, so an MoE model runs its
+expert-parallel layer.  Runs on the CUDA card; ``--smoke --device cpu``
+runs the reduced config on the CPU through the plain PyTorch versions.
+Serving has no mesh path yet (the sharded steps are still to port): the
+mesh flags are accepted and must stay at one device.
 
     python -m repro_torch.launch.serve --arch smollm_135m
     python -m repro_torch.launch.serve --arch recurrentgemma_9b
+    python -m repro_torch.launch.serve --arch granite_moe_3b_a800m
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.api import build_model, make_token_batch
+from repro_torch.train.step import make_decode_step, make_prefill_step
 
 
 def _sync(device: torch.device) -> None:
@@ -34,17 +38,19 @@ def _sync(device: torch.device) -> None:
 
 def decode_steps(api, params, cache, token, pos: int, steps: int,
                  device: torch.device, on_step=None) -> list[torch.Tensor]:
-    """``steps`` greedy decode steps in lockstep from ``cache``, feeding
-    ``token`` [B, 1] at position ``pos`` first.  Returns the tokens fed and
-    produced ([B, 1] int32 each, ``steps + 1`` of them).  ``on_step(i,
-    logits)``, if given, sees each step's logits (i = 1..steps)."""
+    """``steps`` greedy decode steps in lockstep from ``cache`` through
+    ``make_decode_step(api)``, feeding ``token`` [B, 1] at position ``pos``
+    first.  Returns the tokens fed and produced ([B, 1] int32 each,
+    ``steps + 1`` of them).  ``on_step(i, logits)``, if given, sees each
+    step's logits (i = 1..steps)."""
     B = token.shape[0]
+    decode = make_decode_step(api)
     toks = [token]
     for i in range(steps):
         step_batch = {"token": toks[-1],
                       "pos": torch.full((B,), pos + i, dtype=torch.int32,
                                         device=device)}
-        logits, cache = api.decode_step(params, cache, step_batch)
+        logits, cache = decode(params, cache, step_batch)
         if on_step is not None:
             on_step(i + 1, logits)
         toks.append(torch.argmax(logits, dim=-1).to(torch.int32)[:, None])
@@ -54,8 +60,9 @@ def decode_steps(api, params, cache, token, pos: int, steps: int,
 def serve_batch(api, params, tokens: torch.Tensor, gen_len: int,
                 device: torch.device, *, on_prefill=None, on_step=None
                 ) -> tuple[np.ndarray, dict]:
-    """One batched prefill of ``tokens`` [B, P], then ``gen_len`` greedy
-    decode steps in lockstep.
+    """One batched prefill of ``tokens`` [B, P] through
+    ``make_prefill_step``, then ``gen_len`` greedy decode steps in
+    lockstep.
 
     Returns (tokens [B, gen_len + 1] int32: the prefill's greedy token and
     each step's, {"prefill_seconds", "decode_seconds"}), each time taken on
@@ -63,10 +70,12 @@ def serve_batch(api, params, tokens: torch.Tensor, gen_len: int,
     ``on_prefill(logits, cache)`` sees the prefill's output before any
     decode step writes into the cache; ``on_step`` is ``decode_steps``'s."""
     B, P = tokens.shape
+    prefill = make_prefill_step(api, ShapeConfig("serve", P, B, "prefill"),
+                                cache_len=P + gen_len)
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = api.prefill(params, {"tokens": tokens}, P + gen_len)
+        logits, cache = prefill(params, {"tokens": tokens})
         _sync(device)
         t_prefill = time.perf_counter() - t0
         if on_prefill is not None:

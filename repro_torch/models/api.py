@@ -74,16 +74,16 @@ class TorchModelApi:
 
 
 def build_model(cfg: ModelConfig) -> TorchModelApi:
-    """The dense decoder family and the RG-LRU hybrid (serving); other
-    families are not ported yet."""
+    """The decoder-only family (dense and MoE FFNs) and the RG-LRU hybrid
+    (serving); other families are not ported yet."""
     if cfg.recurrent == "rglru":
         from repro_torch.models import rglru
         return rglru.build(cfg)
-    if (cfg.family != "dense" or cfg.moe is not None or cfg.enc_dec
+    if (cfg.family not in ("dense", "moe") or cfg.enc_dec
             or cfg.recurrent != "none"):
         raise NotImplementedError(
-            f"{cfg.arch}: only the dense transformer and RG-LRU hybrid "
-            f"families are ported")
+            f"{cfg.arch}: only the decoder-only transformer (dense and MoE) "
+            f"and RG-LRU hybrid families are ported")
     from repro_torch.models import transformer
     return transformer.build(cfg)
 

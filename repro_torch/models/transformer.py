@@ -1,12 +1,14 @@
-"""Decoder-only LM family (dense path): GQA, qk-norm, softcaps,
-local/global alternation, RoPE, tied embeddings — the counterpart of the
-JAX package's ``models/transformer.py`` for the dense family.
+"""Decoder-only LM family: GQA, qk-norm, softcaps,
+local/global alternation, RoPE, tied embeddings, optional MoE FFN — the
+counterpart of the JAX package's ``models/transformer.py``.
 
 Parameters keep the reference's stacked ``[L, ...]`` layout; where the
 reference scans over layers, this runs a Python loop over the per-layer
 slices, and where it wraps a layer (or a group of layers) in
-``jax.checkpoint``, this uses ``torch.utils.checkpoint``.  MoE FFNs, M-RoPE
-and embeddings input are not ported yet.
+``jax.checkpoint``, this uses ``torch.utils.checkpoint``.  An MoE FFN runs
+the expert-parallel ``moe_ffn_ep`` when its config asks for it and a step
+builder has installed a ``MeshContext``, else the dense one-hot ``moe_ffn``,
+as in the reference.  M-RoPE and embeddings input are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distrib.context import mesh_context, use_mesh_context
 from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
 from repro_torch.models.api import (
     BatchSpec,
@@ -35,11 +38,13 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_angles,
 )
+from repro_torch.models import moe as moe_lib
 
 F32 = torch.float32
 
-_LAYER_KEYS = ["ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up",
-               "w_down"]
+_LAYER_KEYS = ["ln1", "ln2", "wq", "wk", "wv", "wo"]
+_FFN_KEYS = ["w_gate", "w_up", "w_down"]
+_MOE_KEYS = ["router", "we_gate", "we_up", "we_down"]
 
 
 # ------------------------------------------------------------- param specs
@@ -57,15 +62,25 @@ def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
         "wk": ParamSpec((L, D, KV * hd), ("layers", "embed", "kv_heads"), dt),
         "wv": ParamSpec((L, D, KV * hd), ("layers", "embed", "kv_heads"), dt),
         "wo": ParamSpec((L, Hq * hd, D), ("layers", "heads", "embed"), dt),
-        "w_gate": ParamSpec((L, D, Fd), ("layers", "embed", "mlp"), dt),
-        "w_up": ParamSpec((L, D, Fd), ("layers", "embed", "mlp"), dt),
-        "w_down": ParamSpec((L, Fd, D), ("layers", "mlp", "embed"), dt),
     }
     if not cfg.tie_embeddings:
         p["unembed"] = ParamSpec((V, D), ("vocab", "embed"), dt)
     if cfg.qk_norm:
         p["q_norm"] = ParamSpec((L, hd), ("layers", None), dt, init="zeros")
         p["k_norm"] = ParamSpec((L, hd), ("layers", None), dt, init="zeros")
+    if cfg.moe is not None:
+        E, Fe = cfg.moe.num_experts_padded, cfg.moe.d_ff_expert
+        p["router"] = ParamSpec((L, D, E), ("layers", "embed", None), dt)
+        p["we_gate"] = ParamSpec((L, E, D, Fe),
+                                 ("layers", "experts", "expert_in", "expert_mlp"), dt)
+        p["we_up"] = ParamSpec((L, E, D, Fe),
+                               ("layers", "experts", "expert_in", "expert_mlp"), dt)
+        p["we_down"] = ParamSpec((L, E, Fe, D),
+                                 ("layers", "experts", "expert_mlp", "expert_in"), dt)
+    else:
+        p["w_gate"] = ParamSpec((L, D, Fd), ("layers", "embed", "mlp"), dt)
+        p["w_up"] = ParamSpec((L, D, Fd), ("layers", "embed", "mlp"), dt)
+        p["w_down"] = ParamSpec((L, Fd, D), ("layers", "mlp", "embed"), dt)
     return p
 
 
@@ -78,7 +93,8 @@ def _layer_params(params, cfg: ModelConfig) -> list[dict[str, torch.Tensor]]:
     """Each layer's slices of the stacked per-layer parameters (one
     ``unbind`` per array, so the backward pass stacks the layers' gradients
     once)."""
-    keys = _LAYER_KEYS + (["q_norm", "k_norm"] if cfg.qk_norm else [])
+    keys = (_LAYER_KEYS + (["q_norm", "k_norm"] if cfg.qk_norm else [])
+            + (_MOE_KEYS if cfg.moe is not None else _FFN_KEYS))
     per_key = {k: params[k].unbind(0) for k in keys}
     return [{k: per_key[k][i] for k in keys} for i in range(cfg.num_layers)]
 
@@ -122,9 +138,28 @@ def _attention(cfg: ModelConfig, x, lp, sin, cos, *, window: int,
 
 
 def _ffn(cfg: ModelConfig, x, lp):
+    """x + the layer's FFN of x, and the FFN's aux loss (0 when dense)."""
     h = rms_norm(x, lp["ln2"])
-    y = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
-    return x + y @ lp["w_down"]
+    if cfg.moe is not None:
+        ctx = mesh_context()
+        if cfg.moe.impl == "ep" and ctx is not None:
+            y, aux = moe_lib.moe_ffn_ep(
+                h, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+                top_k=cfg.moe.top_k,
+                capacity_factor=cfg.moe.capacity_factor,
+                num_real=cfg.moe.num_experts, mesh=ctx.mesh,
+                dp_axes=ctx.dp_axes, ep_axis=ctx.ep_axis)
+        else:
+            y, aux = moe_lib.moe_ffn(
+                h, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+                top_k=cfg.moe.top_k,
+                capacity_factor=cfg.moe.capacity_factor,
+                num_real=cfg.moe.num_experts)
+    else:
+        y = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
+        y = y @ lp["w_down"]
+        aux = torch.zeros((), dtype=F32, device=x.device)
+    return x + y, aux
 
 
 def _embed_scale(cfg: ModelConfig, x):
@@ -179,19 +214,25 @@ def forward_hidden(params, cfg: ModelConfig, x, sin, cos, *, q_offset=0):
     backward pass (``remat_group = G > 1`` keeps one carry per G layers)."""
     windows = _layer_windows(cfg)
     layers = _layer_params(params, cfg)
+    # the backward pass recomputes a checkpointed span on the autograd
+    # engine's thread (a card's own), which does not see this thread's
+    # context: each span installs the one its forward ran under
+    ctx = mesh_context()
 
-    def run(x, lo, hi):
-        for i in range(lo, hi):
-            x, _ = _attention(cfg, x, layers[i], sin, cos, window=windows[i],
-                              q_offset=q_offset)
-            x = _ffn(cfg, x, layers[i])
-        return x
+    def run(x, aux, lo, hi):
+        with use_mesh_context(ctx):
+            for i in range(lo, hi):
+                x, _ = _attention(cfg, x, layers[i], sin, cos,
+                                  window=windows[i], q_offset=q_offset)
+                x, a = _ffn(cfg, x, layers[i])
+                aux = aux + a
+        return x, aux
 
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=F32, device=x.device)
     for lo, hi in _layer_spans(cfg):
-        x = (checkpoint(run, x, lo, hi, use_reentrant=False) if remat
-             else run(x, lo, hi))
-    aux = torch.zeros((), dtype=F32, device=x.device)   # dense FFNs: no aux
+        x, aux = (checkpoint(run, x, aux, lo, hi, use_reentrant=False)
+                  if remat else run(x, aux, lo, hi))
     return rms_norm(x, params["final_norm"]), aux
 
 
@@ -234,7 +275,7 @@ def prefill(params, cfg: ModelConfig, batch, Smax: int | None = None):
     for i, window in enumerate(_layer_windows(cfg)):
         lp = layers[i]
         x, (k, v) = _attention(cfg, x, lp, sin, cos, window=window)
-        x = _ffn(cfg, x, lp)
+        x, _ = _ffn(cfg, x, lp)
         ks[i, :, :S] = k
         vs[i, :, :S] = v
     cache = {"k": ks, "v": vs,
@@ -272,7 +313,7 @@ def decode_step(params, cfg: ModelConfig, cache, batch):
         out = decode_attention(q, kc, vc, length + 1, window=window,
                                softcap=cfg.attn_softcap)
         x = x + out.reshape(B, 1, -1) @ lp["wo"]
-        x = _ffn(cfg, x, lp)
+        x, _ = _ffn(cfg, x, lp)
     new_cache = {"k": cache["k"], "v": cache["v"], "length": length + 1}
     return _logits(params, cfg, x), new_cache
 

@@ -10,6 +10,8 @@ The train state is a FLAT dict, every leaf one named tensor:
 value and gradient of ``api.loss``, the schedule, the optimizer update and
 ``step + 1``.  PyTorch runs eagerly, so there is nothing to compile; the
 new state is made of new tensors (the old state is not updated in place).
+As in the reference, the step runs under a ``MeshContext`` (on one device,
+that of a (1, 1) mesh), which the MoE layer reads.
 
 With a mesh, the state is a dict of DTensors on the placements of the
 per-arch rule table (``state_shardings``), and the step computes the
@@ -17,9 +19,17 @@ one-device step's values: every process gathers the parameters, runs the
 forward and backward on its data rank's rows of the global batch (the
 kernels take the plain local tensors), averages the gradients over the
 batch axes, and applies AdamW (elementwise) to its own shard of every
-parameter and slot.  Processes on the model axis repeat the same compute:
-the reference leaves the compute's partitioning to GSPMD, and only the
-state's layout is part of its contract (and of the checkpoint).
+parameter and slot.  Processes on the model axis repeat the same compute,
+except in an expert-parallel MoE layer (``models/moe.py::moe_ffn_ep``):
+its expert arrays are gathered over the other axes only, each process
+runs its own experts, and their gradients (this process's experts,
+averaged over the batch axes) are sliced to its shard; ``grad_norm`` sums
+their squares over the model axis.  The reference leaves the rest of the
+compute's partitioning to GSPMD, and only the state's layout is part of its
+contract (and of the checkpoint).
+
+``make_prefill_step`` and ``make_decode_step`` wrap ``api.prefill`` and
+``api.decode_step`` in the same context, on one process (a (1, 1) mesh).
 """
 
 from __future__ import annotations
@@ -30,8 +40,10 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.distrib.context import MeshContext, use_mesh_context
 from repro_torch.distrib.rules import (
     RuleTable,
     batch_shardings,
@@ -43,6 +55,10 @@ from repro_torch.distrib.rules import (
 from repro_torch.models.api import BatchSpec, ParamSpec, TorchModelApi
 
 F32 = torch.float32
+#: the mesh of a step that runs on one device
+ONE_DEVICE = {"data": 1, "model": 1}
+#: the mesh axis experts are sharded over (the reference's ``ep_axis``)
+EP_AXIS = "model"
 
 
 # --------------------------------------------------------------- state spec
@@ -81,6 +97,16 @@ def shard_state(state: dict[str, torch.Tensor], mesh, shardings
                                .slices()].contiguous(),
                              mesh, shardings[name], t.shape)
             for name, t in state.items()}
+
+
+def mesh_context_for(mesh, rules: RuleTable) -> MeshContext:
+    """The context a step installs (the reference's builders' own): batch
+    axes from ``rules``, experts over the model axis.  The reference's
+    context also names the ZeRO-3 axes, over which its ``moe_ffn_ep``
+    gathers the experts' embed dim; here the sharded step gathers them
+    itself, so the layer needs none."""
+    return MeshContext(mesh=mesh, dp_axes=rules.batch_axes, ep_axis=EP_AXIS,
+                       rules=rules)
 
 
 def _split_state(state):
@@ -156,14 +182,32 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
             loss = loss + l / A
         return loss, {}, grads
 
-    def grad_norm(grads):
-        return torch.sqrt(sum(torch.sum(grads[n].to(F32) ** 2)
-                              for n in sorted(grads)))
+    def grad_norm(grads, model_group=None, split=()):
+        """The 2-norm of all gradients; the squares of the arrays in
+        ``split`` (each process holds its own part) are summed over
+        ``model_group`` first."""
+        names = sorted(grads)
+        terms = [torch.sum(grads[n].to(F32) ** 2) for n in names]
+        parts = [i for i, n in enumerate(names) if n in split]
+        if model_group is not None and parts:
+            summed = torch.stack([terms[i] for i in parts])
+            dist.all_reduce(summed, group=model_group)
+            for j, i in enumerate(parts):
+                terms[i] = summed[j]
+        return torch.sqrt(sum(terms))
 
     abstract_state = {n: torch.empty(s.shape, dtype=getattr(torch, s.dtype),
                                      device="meta")
                       for n, s in specs.items()}
     b_specs = api.input_specs(shape)
+    rules = rules or rules_for(api.cfg.arch)
+    ctx = mesh_context_for(ONE_DEVICE if mesh is None else mesh, rules)
+
+    def in_context(fn):
+        def run(state, batch):
+            with use_mesh_context(ctx):
+                return fn(state, batch)
+        return run
 
     if mesh is None:
         def step_fn(state, batch):
@@ -179,10 +223,9 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
             out_metrics.update(metrics)
             return new_state, out_metrics
 
-        return TrainStep(fn=step_fn, abstract_state=abstract_state,
+        return TrainStep(fn=in_context(step_fn), abstract_state=abstract_state,
                          abstract_batch=b_specs)
 
-    rules = rules or rules_for(api.cfg.arch)
     st_sh = state_shardings(mesh, rules, specs)
     b_sh = batch_shardings(mesh, rules, b_specs)
     sizes = mesh_shape(mesh)
@@ -207,9 +250,36 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
             at += v.numel()
         return out
 
+    # the expert arrays an expert-parallel layer takes as this process's
+    # experts: gathered over every axis but the model axis
+    moe = api.cfg.moe
+    split = ({n for n, s in api.param_specs.items() if "experts" in s.axes}
+             if moe is not None and moe.impl == "ep" else set())
+    model_group = mesh.get_group(EP_AXIS) if sizes[EP_AXIS] > 1 else None
+
+    def expert_placements(placements):
+        names = list(sizes)
+        return [p if names[i] == EP_AXIS else Replicate()
+                for i, p in enumerate(placements)]
+
+    def gather(name, p):
+        if name not in split:
+            return p.full_tensor()
+        return p.redistribute(placements=expert_placements(p.placements)
+                              ).to_local()
+
+    def own(name, g, p):
+        """This process's shard of gradient ``g`` of parameter ``p``."""
+        box = local_box(p.shape, mesh, p.placements)
+        if name not in split:
+            return g[box.slices()]
+        held = local_box(p.shape, mesh, expert_placements(p.placements))
+        return g[tuple(slice(a - h, b - h) for a, b, h in
+                       zip(box.start, box.stop, held.start))]
+
     def sharded_step_fn(state, batch):
         params, opt, step = _split_state(state)
-        full = {n: p.full_tensor() for n, p in params.items()}
+        full = {n: gather(n, p) for n, p in params.items()}
         local_step = step.to_local()
         loss, metrics, grads = loss_and_grads(full, batch,
                                               local_step.device)
@@ -221,11 +291,9 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
         grads = dict(zip(names, mean[1 + len(mnames):]))
         with torch.no_grad():
             lr = schedule(local_step)
-            own = {n: grads[n][local_box(params[n].shape, mesh,
-                                         params[n].placements).slices()]
-                   for n in names}
+            owned = {n: own(n, grads[n], params[n]) for n in names}
             new_params, new_opt = optimizer.update(
-                {n: p.to_local() for n, p in params.items()}, own,
+                {n: p.to_local() for n, p in params.items()}, owned,
                 {k: v.to_local() for k, v in opt.items()}, lr, local_step)
             new_state = _join_state(
                 {n: from_local(t, mesh, params[n].placements,
@@ -234,11 +302,50 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
                 {k: from_local(t, mesh, opt[k].placements, opt[k].shape)
                  for k, t in new_opt.items()},
                 from_local(local_step + 1, mesh, step.placements, ()))
-            gnorm = grad_norm(grads)
+            gnorm = grad_norm(grads, model_group, split)
         out_metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm}
         out_metrics.update(metrics)
         return new_state, out_metrics
 
-    return TrainStep(fn=sharded_step_fn, abstract_state=abstract_state,
+    return TrainStep(fn=in_context(sharded_step_fn), abstract_state=abstract_state,
                      abstract_batch=b_specs, mesh=mesh, state_shardings=st_sh,
                      batch_shardings=b_sh)
+
+
+# ------------------------------------------------------------------ serving
+@dataclasses.dataclass
+class ServeStep:
+    """``fn(*args)`` under the step's ``MeshContext`` (``ctx``)."""
+    fn: Callable
+    ctx: MeshContext
+
+    def __call__(self, *args):
+        with use_mesh_context(self.ctx):
+            return self.fn(*args)
+
+
+def _serve_context(api: TorchModelApi, mesh) -> MeshContext:
+    mesh = ONE_DEVICE if mesh is None else mesh
+    if math.prod(mesh_shape(mesh).values()) != 1:
+        raise NotImplementedError(
+            f"serving on a mesh of {mesh_shape(mesh)}: the sharded prefill "
+            f"and decode steps are not ported (ROADMAP Queue 1 item 4, the "
+            f"serve launcher's mesh path)")
+    return mesh_context_for(mesh, rules_for(api.cfg.arch))
+
+
+def make_prefill_step(api: TorchModelApi, shape: ShapeConfig,
+                      cache_len: int | None = None, *, mesh=None
+                      ) -> ServeStep:
+    """prefill(params, batch) -> (logits, cache of ``cache_len`` or
+    ``shape.seq_len`` positions), on one process (``mesh`` of one device or
+    None)."""
+    Smax = cache_len or shape.seq_len
+    return ServeStep(fn=lambda params, batch: api.prefill(params, batch, Smax),
+                     ctx=_serve_context(api, mesh))
+
+
+def make_decode_step(api: TorchModelApi, *, mesh=None) -> ServeStep:
+    """decode(params, cache, batch) -> (logits, cache): one new token per
+    sequence against the cache, on one process."""
+    return ServeStep(fn=api.decode_step, ctx=_serve_context(api, mesh))

@@ -282,6 +282,93 @@ def test_deterministic_train_step_repeats_bit_for_bit(cuda, monkeypatch):
                            s2[name].reshape(-1).view(torch.uint8)), name
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_moe_ffn_ep_on_the_card_matches_the_dense_oracle(cuda, dtype, tol):
+    """``moe_ffn_ep`` (a model axis of 1) against the dense one-hot oracle
+    at capacity factor E on the card, granite's expert count (40 real of
+    48) and top-8 at a narrow width: y within ``tol`` of its scale, and the
+    EP forward and backward repeat bit for bit in deterministic mode (the
+    dispatch and combine gather, never accumulate through atomics)."""
+    from repro_torch.models import moe
+    from repro_torch.train.step import ONE_DEVICE
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, S, D, E, Fd = 2, 64, 128, 48, 64
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=cuda)
+                ).to(dtype)
+    args = [rnd(B, S, D), rnd(D, E), rnd(E, D, Fd, scale=0.1),
+            rnd(E, D, Fd, scale=0.1), rnd(E, Fd, D, scale=0.1)]
+    kw = dict(top_k=8, num_real=40, capacity_factor=float(E))
+    y_dn, _ = moe.moe_ffn(*args, **kw)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            ts = [a.clone().requires_grad_(True) for a in args]
+            y, aux = moe.moe_ffn_ep(*ts, mesh=ONE_DEVICE, **kw)
+            grads = torch.autograd.grad((y.float() ** 2).sum() + aux, ts)
+            runs.append([y.detach(), aux.detach(), *grads])
+    finally:
+        torch.use_deterministic_algorithms(was)
+    y = runs[0][0].float()
+    assert float((y - y_dn.float()).abs().max()) <= \
+        tol * float(y_dn.float().abs().max())
+    for a, b in zip(*runs):
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+def test_granite_ep_train_step_repeats_bit_for_bit(cuda, monkeypatch):
+    """Granite's smoke EP variant (the one-device step installs a (1, 1)
+    context, so every MoE layer runs ``moe_ffn_ep``) at head dim 64 through
+    the kernel path: two runs of 3 steps from one seeded state in
+    deterministic mode, every array and loss bit-equal, aux positive."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.train import (AdamW, SyntheticLM, init_train_state,
+                                   make_train_step, warmup_cosine)
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = get_smoke_config("granite_moe_3b_a800m")
+    cfg = dataclasses.replace(
+        cfg, d_model=256, head_dim=64, attention_impl="pallas", remat=True,
+        moe=dataclasses.replace(cfg.moe, impl="ep"))
+    api = build_model(cfg)
+    step = make_train_step(api, AdamW(), functools.partial(
+        warmup_cosine, base_lr=3e-3, warmup=1, total=3),
+        ShapeConfig("t", 256, 2, "train"))
+    data = SyntheticLM(cfg.vocab, 256, 2, seed=0)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            state = init_train_state(
+                api, AdamW(), torch.Generator(device=cuda).manual_seed(0))
+            metrics = []
+            for i in range(3):
+                batch = {k: torch.from_numpy(v).to(cuda)
+                         for k, v in data.batch(i).items()}
+                state, m = step(state, batch)
+                metrics.append((float(m["loss"]), float(m["aux"])))
+            runs.append((state, metrics))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (s1, m1), (s2, m2) = runs
+    assert m1 == m2 and all(np.isfinite(l) and a > 0 for l, a in m1)
+    for name in s1:
+        assert torch.equal(s1[name].reshape(-1).view(torch.uint8),
+                           s2[name].reshape(-1).view(torch.uint8)), name
+
+
 def _fe_functions(N):
     from repro_torch.fem import (Element, FunctionSpace, distribute,
                                  interpolate, tri_mesh)

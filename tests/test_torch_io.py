@@ -272,18 +272,21 @@ def test_port_has_no_import_of_jax_or_reference_anywhere():
     FEM facade of ``core.async_io``, which importing every module never
     runs), names ``jax``, the JAX package or ``ml_dtypes``: every module of
     ``repro_torch`` (the meshes, the elastic harness and example among
-    them), ``chip_smoke.py`` and the helpers that the port's spawned
-    processes import."""
+    them, and the MoE layer and its collectives), ``chip_smoke.py`` and the
+    helpers that the port's spawned processes import."""
     banned = ("jax", "repro", "ml_dtypes")
     found = []
     paths = sorted((REPO / "repro_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests/helpers/torch_faultstore.py",
-        REPO / "tests/helpers/torch_mesh_workers.py"]
+        REPO / "tests/helpers/torch_mesh_workers.py",
+        REPO / "tests/helpers/torch_moe_workers.py"]
     names = {str(p.relative_to(REPO)) for p in paths}
     assert {"repro_torch/distrib/rules.py", "repro_torch/distrib/group.py",
             "repro_torch/distrib/sharding.py", "repro_torch/launch/mesh.py",
             "repro_torch/launch/spawn.py", "repro_torch/train/elastic.py",
-            "repro_torch/examples/elastic_restart.py"} <= names
+            "repro_torch/examples/elastic_restart.py",
+            "repro_torch/models/moe.py", "repro_torch/distrib/collectives.py",
+            "repro_torch/configs/granite_moe_3b_a800m.py"} <= names
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

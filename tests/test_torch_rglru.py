@@ -324,11 +324,9 @@ def test_engine_refuses_caches_it_cannot_splice():
         TorchServeEngine(tapi, tparams, slots=2, max_seq=16)
 
 
-@pytest.mark.parametrize("arch", ["xlstm_350m", "granite_moe_3b_a800m",
-                                  "whisper_base", "qwen2_vl_7b"])
+@pytest.mark.parametrize("arch", ["xlstm_350m", "whisper_base",
+                                  "qwen2_vl_7b"])
 def test_build_model_refuses_unported_families(arch):
     ref = dataclasses.asdict(get_smoke_config(arch))
-    if ref["moe"] is not None:
-        ref["moe"] = torch_base.MoEConfig(**ref["moe"])
     with pytest.raises(NotImplementedError):
         torch_build_model(torch_base.ModelConfig(**ref))
