@@ -16,6 +16,9 @@ ARCHS = [
     "recurrentgemma_9b",
     "qwen3_1_7b",
     "granite_moe_3b_a800m",
+    "gemma2_2b",
+    "qwen3_4b",
+    "qwen2_vl_7b",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

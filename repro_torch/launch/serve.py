@@ -12,6 +12,15 @@ mesh flags are accepted and must stay at one device.
     python -m repro_torch.launch.serve --arch smollm_135m
     python -m repro_torch.launch.serve --arch recurrentgemma_9b
     python -m repro_torch.launch.serve --arch granite_moe_3b_a800m
+    python -m repro_torch.launch.serve --arch qwen3_4b
+    python -m repro_torch.launch.serve --arch gemma2_2b
+    python -m repro_torch.launch.serve --arch qwen2_vl_7b
+
+qwen2-vl-7b's prefill takes the synthetic batch of its embeddings input
+(``embeds`` and M-RoPE ``positions``), as the reference's launcher gives
+it; decode then feeds the greedy tokens.  gemma2-2b's alternating
+local/global layers take the blocked plain path, not the kernel, as the
+reference's dispatch does.
 """
 
 from __future__ import annotations
@@ -36,6 +45,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prompt_batch(cfg, B: int, P: int, device: torch.device, seed: int = 0
+                 ) -> dict[str, torch.Tensor]:
+    """The synthetic prefill batch of ``make_token_batch`` on ``device``:
+    ``tokens`` [B, P], or ``embeds`` [B, P, D] and M-RoPE ``positions``
+    under embeddings input."""
+    return {k: torch.from_numpy(v).to(device) for k, v in make_token_batch(
+        cfg, ShapeConfig("serve", P, B, "prefill"), seed=seed).items()}
+
+
+def batch_dims(batch: dict[str, torch.Tensor]) -> tuple[int, int]:
+    """(B, P) of a prefill batch, read from its ``tokens`` or ``embeds``."""
+    x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    return x.shape[0], x.shape[1]
+
+
 def decode_steps(api, params, cache, token, pos: int, steps: int,
                  device: torch.device, on_step=None) -> list[torch.Tensor]:
     """``steps`` greedy decode steps in lockstep from ``cache`` through
@@ -57,10 +81,11 @@ def decode_steps(api, params, cache, token, pos: int, steps: int,
     return toks
 
 
-def serve_batch(api, params, tokens: torch.Tensor, gen_len: int,
+def serve_batch(api, params, batch: dict[str, torch.Tensor], gen_len: int,
                 device: torch.device, *, on_prefill=None, on_step=None
                 ) -> tuple[np.ndarray, dict]:
-    """One batched prefill of ``tokens`` [B, P] through
+    """One batched prefill of the prompt ``batch`` (``tokens`` [B, P], or
+    ``embeds`` [B, P, D] and ``positions`` under embeddings input) through
     ``make_prefill_step``, then ``gen_len`` greedy decode steps in
     lockstep.
 
@@ -69,13 +94,13 @@ def serve_batch(api, params, tokens: torch.Tensor, gen_len: int,
     the host clock around work that ends in a device synchronise.
     ``on_prefill(logits, cache)`` sees the prefill's output before any
     decode step writes into the cache; ``on_step`` is ``decode_steps``'s."""
-    B, P = tokens.shape
+    B, P = batch_dims(batch)
     prefill = make_prefill_step(api, ShapeConfig("serve", P, B, "prefill"),
                                 cache_len=P + gen_len)
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, batch)
         _sync(device)
         t_prefill = time.perf_counter() - t0
         if on_prefill is not None:
@@ -115,12 +140,9 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, attention_impl="pallas")
     api = build_model(cfg)
     B, P, G = args.batch, args.prompt_len, args.gen_len
-    shape = ShapeConfig("serve", P, B, "prefill")
-
-    batch = make_token_batch(cfg, shape, seed=0)
+    batch = prompt_batch(cfg, B, P, device)
     params = api.init(torch.Generator(device=device).manual_seed(0))
-    tokens = torch.from_numpy(batch["tokens"]).to(device)
-    out, timings = serve_batch(api, params, tokens, G, device)
+    out, timings = serve_batch(api, params, batch, G, device)
     t_prefill, t_decode = timings["prefill_seconds"], timings["decode_seconds"]
 
     print(json.dumps({

@@ -74,16 +74,18 @@ class TorchModelApi:
 
 
 def build_model(cfg: ModelConfig) -> TorchModelApi:
-    """The decoder-only family (dense and MoE FFNs) and the RG-LRU hybrid
-    (serving); other families are not ported yet."""
+    """The decoder-only family (dense and MoE FFNs, and the VLM backbone on
+    embeddings input) and the RG-LRU hybrid (serving); the encoder-decoder
+    (whisper) and xLSTM families are not ported yet."""
     if cfg.recurrent == "rglru":
         from repro_torch.models import rglru
         return rglru.build(cfg)
-    if (cfg.family not in ("dense", "moe") or cfg.enc_dec
+    if (cfg.family not in ("dense", "moe", "vlm") or cfg.enc_dec
             or cfg.recurrent != "none"):
         raise NotImplementedError(
-            f"{cfg.arch}: only the decoder-only transformer (dense and MoE) "
-            f"and RG-LRU hybrid families are ported")
+            f"{cfg.arch}: the encoder-decoder (whisper) and xLSTM families "
+            f"are not ported; the decoder-only transformer (dense, MoE, "
+            f"VLM) and the RG-LRU hybrid are")
     from repro_torch.models import transformer
     return transformer.build(cfg)
 

@@ -31,11 +31,19 @@ def rms_norm(x, weight, eps: float = 1e-6):
 
 
 # -------------------------------------------------------------------- rope
+def _rope_freq(half: int, theta: float, device) -> torch.Tensor:
+    """f32 ``theta ** (-arange(half) / half)``: the exponent in f32, the
+    power in f64 rounded once to f32, which gives XLA's f32 ``pow`` bit for
+    bit (``torch.pow`` in f32 is 1 ulp off in a few lanes, an angle error
+    that grows with the position)."""
+    expo = -torch.arange(0, half, dtype=F32, device=device) / half
+    return (theta ** expo.double()).float()
+
+
 def rope_angles(positions, head_dim: int, theta: float):
     """positions [...]: int -> (sin, cos) of shape [..., head_dim//2]."""
     half = head_dim // 2
-    freq = theta ** (-torch.arange(0, half, dtype=F32,
-                                   device=positions.device) / half)
+    freq = _rope_freq(half, theta, positions.device)
     ang = positions.float()[..., None] * freq
     return torch.sin(ang), torch.cos(ang)
 
@@ -48,6 +56,25 @@ def apply_rope(x, sin, cos):
     cos = cos[..., None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def mrope_angles(positions, head_dim: int, theta: float,
+                 sections: tuple[int, ...]):
+    """Multimodal RoPE (Qwen2-VL): positions [..., 3] (t, h, w); the hd/2
+    frequency lanes are split into ``sections`` fed by the three streams,
+    in that order.  Returns (sin, cos) of shape [..., head_dim//2]."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not cover "
+                         f"{half} lanes")
+    freq = _rope_freq(half, theta, positions.device)
+    parts, start = [], 0
+    for comp, width in enumerate(sections):
+        parts.append(positions[..., comp].float()[..., None]
+                     * freq[start:start + width])
+        start += width
+    ang = torch.cat(parts, dim=-1)
+    return torch.sin(ang), torch.cos(ang)
 
 
 # ------------------------------------------------ blocked (flash) attention

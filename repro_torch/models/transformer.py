@@ -1,6 +1,8 @@
 """Decoder-only LM family: GQA, qk-norm, softcaps,
-local/global alternation, RoPE, tied embeddings, optional MoE FFN — the
-counterpart of the JAX package's ``models/transformer.py``.
+local/global alternation, RoPE / M-RoPE, tied or untied embeddings, token
+or embeddings input, optional MoE FFN — the counterpart of the JAX
+package's ``models/transformer.py`` (smollm-135m, gemma2-2b, qwen3-1.7b/4b,
+qwen2-vl-7b's backbone, granite-moe).
 
 Parameters keep the reference's stacked ``[L, ...]`` layout; where the
 reference scans over layers, this runs a Python loop over the per-layer
@@ -8,7 +10,7 @@ slices, and where it wraps a layer (or a group of layers) in
 ``jax.checkpoint``, this uses ``torch.utils.checkpoint``.  An MoE FFN runs
 the expert-parallel ``moe_ffn_ep`` when its config asks for it and a step
 builder has installed a ``MeshContext``, else the dense one-hot ``moe_ffn``,
-as in the reference.  M-RoPE and embeddings input are not ported yet.
+as in the reference.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from repro_torch.models.layers import (
     chunked_softmax_xent,
     decode_attention,
     flash_attention_xla,
+    mrope_angles,
     naive_attention,
     rms_norm,
     rope_angles,
@@ -182,11 +185,25 @@ def _logits(params, cfg: ModelConfig, x):
     return logits
 
 
+def _angles(cfg: ModelConfig, positions):
+    """RoPE (sin, cos) of positions [B, S], or M-RoPE's of [B, S, 3]."""
+    if cfg.mrope:
+        return mrope_angles(positions, cfg.head_dim_, cfg.rope_theta,
+                            cfg.mrope_sections())
+    return rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+
+
 def _embed_in(params, cfg: ModelConfig, batch):
-    """Token embeddings (scaled) and their positions [B, S].  The gather is
-    ``index_select``, whose backward on a card is deterministic under
-    ``torch.use_deterministic_algorithms`` (advanced indexing accumulates
-    repeated tokens' rows with atomics)."""
+    """The input activations [B, S, D] and their positions.  Embeddings
+    input (``input_mode="embeds"``): ``batch["embeds"]`` cast to the
+    model's dtype, unscaled, and ``batch["positions"]`` as given ([B, S],
+    or [B, S, 3] under M-RoPE).  Tokens: their embeddings (scaled) and
+    positions [B, S].  The gather is ``index_select``, whose backward on a
+    card is deterministic under ``torch.use_deterministic_algorithms``
+    (advanced indexing accumulates repeated tokens' rows with atomics)."""
+    if cfg.input_mode == "embeds":
+        x = batch["embeds"].to(getattr(torch, cfg.dtype))
+        return x, batch["positions"]
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = torch.index_select(params["embed"], 0, tokens.reshape(-1).long())
@@ -239,7 +256,7 @@ def forward_hidden(params, cfg: ModelConfig, x, sin, cos, *, q_offset=0):
 # -------------------------------------------------------------------- loss
 def loss_fn(params, cfg: ModelConfig, batch):
     x, positions = _embed_in(params, cfg, batch)
-    sin, cos = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    sin, cos = _angles(cfg, positions)
     hidden, aux = forward_hidden(params, cfg, x, sin, cos)
     total, count = chunked_softmax_xent(
         hidden, _unembed(params), batch["targets"], batch["mask"],
@@ -261,13 +278,14 @@ def cache_specs(cfg: ModelConfig, B: int, Smax: int) -> dict[str, BatchSpec]:
 
 def prefill(params, cfg: ModelConfig, batch, Smax: int | None = None):
     """Full-sequence forward; returns (last-token logits [B, V] f32, filled
-    cache).  ``batch["tokens"]`` is [B, S] on the parameters' device."""
-    B, S = batch["tokens"].shape
+    cache).  ``batch`` holds ``tokens`` [B, S], or ``embeds`` [B, S, D] and
+    ``positions`` under embeddings input, on the parameters' device."""
+    x, positions = _embed_in(params, cfg, batch)
+    B, S, _ = x.shape
     Smax = Smax or S
     dev = params["embed"].device
     dtype = getattr(torch, cfg.dtype)
-    x, positions = _embed_in(params, cfg, batch)
-    sin, cos = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    sin, cos = _angles(cfg, positions)
     shape = (cfg.num_layers, B, Smax, cfg.num_kv_heads, cfg.head_dim_)
     ks = torch.zeros(shape, dtype=dtype, device=dev)
     vs = torch.zeros(shape, dtype=dtype, device=dev)
@@ -286,16 +304,25 @@ def prefill(params, cfg: ModelConfig, batch, Smax: int | None = None):
 def decode_step(params, cfg: ModelConfig, cache, batch):
     """One token in, one token's logits out.
 
-    batch: token [B, 1], pos [B] (tensors on the parameters' device).
-    ``cache["length"]`` is a 0-d tensor (all sequences in step) or a
-    PER-SLOT [B] vector (the continuous-batching engine: each slot writes
-    its own cache position).  Unlike the reference, which returns a new
+    batch: token [B, 1], pos [B] (tensors on the parameters' device); under
+    embeddings input it may carry ``embeds`` [B, 1, D] and ``positions``
+    instead, taken as prefill takes them (unscaled), while a token is
+    embedded and scaled, as in the reference.  Under M-RoPE, positions
+    [B, 1] feed all three streams.  ``cache["length"]`` is a 0-d tensor
+    (all sequences in step) or a PER-SLOT [B] vector (the
+    continuous-batching engine: each slot writes its own cache position).
+    Unlike the reference, which returns a new
     cache, the new token's k/v are written into ``cache["k"]`` and
     ``cache["v"]`` IN PLACE; the returned dict shares those tensors and
     carries ``length + 1``."""
-    x = _embed_scale(cfg, params["embed"][batch["token"].long()])
-    positions = batch["pos"][:, None]
-    sin, cos = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    if cfg.input_mode == "embeds" and "embeds" in batch:
+        x, positions = _embed_in(params, cfg, batch)
+    else:
+        x = _embed_scale(cfg, params["embed"][batch["token"].long()])
+        positions = batch["pos"][:, None]
+    if cfg.mrope and positions.dim() == 2:
+        positions = torch.stack([positions] * 3, dim=-1)
+    sin, cos = _angles(cfg, positions)
     length = cache["length"]
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)

@@ -76,6 +76,11 @@ def test_ckpt_pack_kernel_into_offset_buffer(cuda):
     (1, 200, 200, 4, 2, 64, 40, 30.0, 0, False),  # softcap and window
     (2, 150, 150, 6, 2, 64, 0, 0.0, 0, True),     # k, v slices of one tensor
     (1, 129, 129, 8, 4, 128, 0, 0.0, 0, True),
+    # qwen2-vl-7b's heads: an odd group, G 7 (query head h reads kv h // 7)
+    (2, 200, 200, 28, 4, 128, 0, 0.0, 0, False),
+    (2, 512, 512, 28, 4, 128, 0, 0.0, 0, False),  # vlm_state's prefill
+    (1, 65, 65, 14, 2, 128, 0, 0.0, 0, False),
+    (1, 100, 300, 7, 1, 128, 0, 0.0, 200, False),
 ])
 def test_flash_attention_kernel_within_tolerance(cuda, B, Sq, Sk, Hq, Hkv, hd,
                                                  window, cap, qoff, fused):
@@ -280,6 +285,44 @@ def test_deterministic_train_step_repeats_bit_for_bit(cuda, monkeypatch):
     for name in s1:
         assert torch.equal(s1[name].reshape(-1).view(torch.uint8),
                            s2[name].reshape(-1).view(torch.uint8)), name
+
+
+def test_vlm_prefill_on_the_card_matches_the_cpu(cuda):
+    """qwen2-vl's smoke backbone widened to the kernel's head dim 128 with
+    qwen2-vl-7b's odd group (14 query heads over 2 kv heads, G 7), bf16,
+    prefilled from its embeddings batch (M-RoPE positions [B, S, 3]): the
+    card's logits and cache (the flash kernel, one launch a layer) against
+    the CPU's (its plain version) on the same weights, within bf16's 2e-2
+    of each array's scale."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import build_model, make_token_batch
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2_vl_7b"), head_dim=128,
+                              num_heads=14, num_kv_heads=2,
+                              attention_impl="pallas")
+    assert cfg.mrope_sections() == (16, 24, 24) and cfg.q_per_kv == 7
+    api = build_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0))
+    batch = make_token_batch(cfg, ShapeConfig("p", 200, 2, "prefill"), seed=1)
+    cpu = api.prefill(params, {k: torch.from_numpy(v)
+                               for k, v in batch.items()}, 208)
+    attn_ops.launches = 0
+    card = api.prefill({k: v.to(cuda) for k, v in params.items()},
+                       {k: torch.from_numpy(v).to(cuda)
+                        for k, v in batch.items()}, 208)
+    torch.cuda.synchronize()
+    assert attn_ops.launches == cfg.num_layers
+    (got_logits, got_cache), (want_logits, want_cache) = card, cpu
+    for got, want in [(got_logits, want_logits),
+                      (got_cache["k"], want_cache["k"]),
+                      (got_cache["v"], want_cache["v"])]:
+        got, want = got.float().cpu(), want.float()
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= \
+            2e-2 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

@@ -43,14 +43,22 @@ def _apis(impl: str, dtype: str):
 
 
 def test_configs_are_copies():
-    assert (dataclasses.asdict(torch_smoke_config("smollm_135m"))
-            == dataclasses.asdict(get_smoke_config("smollm_135m")))
+    """smollm-135m and the dense family of the later slice (qwen3-4b,
+    gemma2-2b, qwen2-vl-7b), full and smoke, by every published id; an
+    architecture that is not ported is refused by name."""
     from repro.configs import get_config
     from repro_torch.configs import get_config as torch_get_config
-    assert (dataclasses.asdict(torch_get_config("smollm-135m"))
-            == dataclasses.asdict(get_config("smollm_135m")))
-    with pytest.raises(ValueError):
-        torch_get_config("gemma2_2b")
+    for arch, ids in [("smollm_135m", ["smollm-135m"]),
+                      ("qwen3_4b", ["qwen3-4b"]),
+                      ("gemma2_2b", ["gemma2-2b"]),
+                      ("qwen2_vl_7b", ["qwen2-vl-7b", "qwen2-vl.7b"])]:
+        assert (dataclasses.asdict(torch_smoke_config(arch))
+                == dataclasses.asdict(get_smoke_config(arch)))
+        for name in [arch] + ids:
+            assert (dataclasses.asdict(torch_get_config(name))
+                    == dataclasses.asdict(get_config(name))), name
+    with pytest.raises(ValueError, match="not ported"):
+        torch_get_config("whisper_base")
 
 
 def test_param_specs_match_reference():

@@ -497,7 +497,7 @@ def test_serve_launcher_granite_cpu(capsys):
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, tapi.cfg.vocab, (4, 8)).astype(np.int32))
     moe.calls = 0
-    out, _ = torch_serve.serve_batch(tapi, params, tokens, 4,
+    out, _ = torch_serve.serve_batch(tapi, params, {"tokens": tokens}, 4,
                                      torch.device("cpu"))
     assert moe.calls == tapi.cfg.num_layers * (1 + 4)
     prefill = make_prefill_step(tapi, ShapeConfig("p", 8, 4, "prefill"),

@@ -1,9 +1,17 @@
 #!/usr/bin/env python3
-"""Time smollm-135m's serving calls (prefill and decode step, full width,
-seeded weights on the card) for one or more checkouts, to compare two
-commits in one call.
+"""Time a model's serving calls (prefill and decode step, full width,
+seeded weights on the card; smollm-135m unless ``--arch`` names another
+ported architecture) through the serving step builders, for one or more
+checkouts, to compare two commits in one call.
 
-    python3 tools/serve_timing.py ROOT [ROOT ...]
+    python3 tools/serve_timing.py [--arch ARCH] ROOT [ROOT ...]
+
+ARCH is any architecture in ``repro_torch.configs.ARCHS`` (the launcher's
+setting: prefill attention through the flash kernel where the reference's
+dispatch takes it).  A model with embeddings input (qwen2-vl-7b) prefills
+from the launcher's synthetic batch (``launch/serve.py::prompt_batch``:
+``embeds`` and M-RoPE ``positions``) at each prompt length, and decodes
+tokens.
 
 Each ROOT is a checkout of this repository (the parent commit unpacked with
 ``git archive``, say, or ``.`` for this one), timed in a process of its own
@@ -38,21 +46,22 @@ def _chip_smoke():
     return mod
 
 
-def time_root(root: Path) -> dict:
+def time_root(root: Path, arch: str) -> dict:
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
 
     smoke = _chip_smoke()
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.models.api import build_model
+    from repro_torch.train.step import make_decode_step, make_prefill_step
 
     if not Path(sys.modules["repro_torch"].__file__).resolve().is_relative_to(
             root):
         raise RuntimeError(f"imported another checkout's repro_torch, not "
                            f"{root}'s")
-    cfg = dataclasses.replace(get_config("smollm_135m"),
-                              attention_impl="pallas")
+    cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
     api = build_model(cfg)
     dev = torch.device("cuda")
 
@@ -63,17 +72,30 @@ def time_root(root: Path) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
-    prompts = [torch.from_numpy(p[None]).to(dev)
-               for _, p, _ in smoke.make_requests(cfg.vocab)]
+    def prefill(p, B):
+        """The serving step's prefill of ``p`` [P] tokens at batch B (the
+        tokens repeated), or of the embeddings batch of its length, as a
+        call of no arguments."""
+        if cfg.input_mode == "embeds":
+            from repro_torch.launch.serve import prompt_batch
+            batch = prompt_batch(cfg, B, len(p), dev, seed=SEED)
+        else:
+            batch = {"tokens": torch.from_numpy(p[None]).to(dev).expand(B, -1)}
+        step = make_prefill_step(api, ShapeConfig("t", len(p), B, "prefill"),
+                                 cache_len=MAX_SEQ)
+        return lambda: step(params, batch)
+
+    requests = [p for _, p, _ in smoke.make_requests(cfg.vocab)]
+    prompts = [prefill(p, 1) for p in requests]
+    lockstep = prefill(requests[1], SLOTS)
+    decode = make_decode_step(api)
     rounds = []
     with torch.inference_mode():
         params = api.init(torch.Generator(device=dev).manual_seed(SEED))
-        api.prefill(params, {"tokens": prompts[0]}, MAX_SEQ)     # warm up
+        prompts[0]()                                            # warm up
         for _ in range(ROUNDS):
-            prefill = sum(timed(lambda: api.prefill(
-                params, {"tokens": p}, MAX_SEQ))[0] for p in prompts)
-            _, (logits, cache) = timed(lambda: api.prefill(
-                params, {"tokens": prompts[1].expand(SLOTS, -1)}, MAX_SEQ))
+            t_prefill = sum(timed(p)[0] for p in prompts)
+            _, (logits, cache) = timed(lockstep)
             tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
             pos = int(cache["length"])
             steps = []
@@ -81,25 +103,33 @@ def time_root(root: Path) -> dict:
                 batch = {"token": tok, "pos": torch.full(
                     (SLOTS,), pos + i, dtype=torch.int32, device=dev)}
                 t, (logits, cache) = timed(
-                    lambda: api.decode_step(params, cache, batch))
+                    lambda: decode(params, cache, batch))
                 steps.append(t)
                 tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-            rounds.append({"prefill_seconds": prefill,
+            rounds.append({"prefill_seconds": t_prefill,
                            "decode_step_ms": float(np.median(steps)) * 1e3})
-    return {"root": str(root), "prompts": [int(p.shape[1]) for p in prompts],
-            "rounds": rounds}
+    return {"root": str(root), "arch": cfg.arch,
+            "device": torch.cuda.get_device_name(dev),
+            "prompts": [len(p) for p in requests], "rounds": rounds}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--one"]:
-        print(json.dumps(time_root(Path(argv[1]).resolve())), flush=True)
+        print(json.dumps(time_root(Path(argv[1]).resolve(), argv[2])),
+              flush=True)
         return 0
-    if not argv:
+    arch = "smollm_135m"
+    if argv[:1] == ["--arch"]:
+        arch, argv = argv[1], argv[2:]
+    sys.path.insert(0, str(HERE))
+    from repro_torch.configs import ARCHS
+
+    if not argv or arch not in ARCHS:
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv:
-        out = subprocess.run([sys.executable, __file__, "--one", root],
+        out = subprocess.run([sys.executable, __file__, "--one", root, arch],
                              capture_output=True, text=True, check=True,
                              timeout=900)
         print(out.stdout.strip().splitlines()[-1], flush=True)
