@@ -7,14 +7,21 @@ training path: smollm-135m trained on the card, killed, and resumed from
 its N-to-M checkpoint; then the paper's own finite-element path at full
 size and the post-processing sweep of the training run's checkpoint; the
 restart across process counts; the MoE family, granite-moe-3b-a800m
-served at full size and trained at 2 layers; and the rest of the dense
+served at full size and trained at 2 layers; the rest of the dense
 family, qwen3-4b and qwen2-vl-7b served through the flash kernel at head
-dim 128 and gemma2-2b served past its 4,096-token window.
+dim 128 and gemma2-2b served past its 4,096-token window; and the
+recurrent families' training, recurrentgemma-9b at 3 layers through the
+scan's gradient and xlstm-350m served, restarted and trained at full size.
 
   device   the card's name and power limit (nvidia-smi);
   build    the hand-written kernels, compiled from this checkout's sources;
   kernels  each kernel against its plain PyTorch version on the card, at the
            main paths' shapes, with its time, bound, plain and library times;
+           and the scan's gradient (``lru_scan_vjp``: kernel forward, kernel
+           backward) against autograd through the plain version, with the
+           backward's time and bound, in deterministic mode (the train
+           path's) and in default mode, and the kernel's bits over repeated
+           launches in both modes, each launch held to the plain version;
   ckpt     a seeded full-width smollm-135m state on the card, saved as N=4
            ranks through the N-to-M engine (ckpt_pack packs each rank's
            chunks), restored N-to-M onto this one card, checked bit for bit;
@@ -71,8 +78,8 @@ dim 128 and gemma2-2b served past its 4,096-token window.
            through the sharded step on a (1, 1) NCCL mesh in deterministic
            mode with the flash kernel under autograd and ``moe_ffn_ep`` in
            every layer (counted): 4 steps (finite falling loss, positive
-           aux), then steps 1-2 twice from one seed, bit-equal in every
-           array.
+           aux), then steps 1-2 again from one seed, bit-equal to the first
+           run's in every array and loss.
   dense_serve  qwen3-4b, then qwen2-vl-7b (its embeddings input: embeds
            and M-RoPE positions), at full width and depth (seeded weights
            on the card) through the launcher's ``serve_batch``: B 4,
@@ -95,20 +102,41 @@ dim 128 and gemma2-2b served past its 4,096-token window.
            weights in f32, where the step with the window dropped must
            fail; then the port of ``examples/serve_batched.py`` on the
            card.
+  hybrid_train  recurrentgemma-9b at full width, depth cut to 3 layers (one
+           (lru, lru, local) group, 1.71 G parameters), B 4, S 2048, remat,
+           deterministic mode: 4 steps (finite falling loss), then steps 1-2
+           again from the seed, bit-equal in every array; 3 ``rglru_scan``
+           launches a recurrent layer a step (forward, remat's recompute,
+           backward), counted and pinned.
+  xlstm_serve  xlstm-350m at full size through the launcher's
+           ``serve_batch``: B 4, prompt 512, 32 decode steps; a repeated
+           prefill bit-equal; decode steps against longer prefills in bf16,
+           and in f32 for the same weights; the sLSTM loop's share of a
+           prefill.
+  xlstm_state  its serving state after a B 2, prompt-512 prefill (101 MB)
+           saved as N=4 ranks, restored 4-to-1 onto the card bit for bit;
+           8 decode steps from it and from the live state, logits
+           bit-equal.
+  xlstm_train  xlstm-350m at full size, B 4, S 512: 4 steps and steps 1-2
+           again bit-equal; then runs A, B and C as in ``train`` at 2 layers
+           (one mLSTM/sLSTM pair at full width), C bit-exact with A.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after; a kernel of a path that never launched fails the run (the fem and
-postprocess paths run no kernel: their counts are reported).  Every phase
-prints one JSON line; a failing phase raises and the script exits non-zero.
+after; a kernel of a path that never launched fails the run (the fem,
+postprocess and xlstm_serve paths run no kernel: their counts are
+reported).  Every phase prints one JSON line; a failing phase raises and
+the script exits non-zero.
 Before the last line come the {"kernels": [...]} line (``launches`` summed
 over the paths that run the kernel) and the card's name and power limit;
 the last line is {"ok": true, "device": {...}}.  Needs one CUDA card (80 GB:
-the 9.4 B-parameter model is 18.8 GB in bf16; each model is freed before the
-next is seeded) and the repository around it; imports nothing of JAX.
+the 9.4 B-parameter model is 18.8 GB in bf16, recurrentgemma's 3-layer train
+state 17 GB; each model is freed before the next is seeded) and the
+repository around it; imports nothing of JAX.
 
     python3 chip_smoke.py [--kernels-only]
 
-``--kernels-only`` stops after the kernel checks.
+``--kernels-only`` stops after the kernel checks (and prints neither of
+the last two lines).
 """
 
 from __future__ import annotations
@@ -156,6 +184,10 @@ LOGITS_RTOL = {"smollm-135m": 0.01, "granite-moe-3b-a800m": 0.01,
 # doubling scan: the same sums in another order)
 SCAN_ATOL = SCAN_RTOL = 1e-5
 
+# forward launches of rglru_scan at the train shape compared bit for bit,
+# with and without deterministic mode
+SCAN_REPEATS = 10
+
 # rounds of ckpt_pack's timing, each the kernel then index_select
 PACK_ROUNDS = 5
 
@@ -185,6 +217,13 @@ CONSISTENCY_STEPS = (1, 16, 32)
 # against flash_attention_xla).  Measured on an H100 at 0.020-0.031 of the
 # largest logit for these inputs; the bound leaves 1.6x of that
 CONSISTENCY_RTOL = 0.05
+# the hybrid train path: recurrentgemma-9b at full width, depth cut from 38
+# to 3 layers (one (lru, lru, local) group, 1.71 G parameters: full depth's
+# AdamW state is 94 GB), B 4, S 2048 (its local window), remat on,
+# deterministic mode, AdamW under warmup_cosine(3e-3, warmup 2, total 4);
+# steps 1-2 run again from one seed and must agree bit for bit
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_B, HYBRID_TRAIN_S = 3, 4, 2048
+HYBRID_TRAIN_STEPS, HYBRID_REPEAT_STEPS = 4, 2
 
 # the train phase: SmolLM's published context of 2,048 tokens at batch 4
 # (8,192 tokens a step), AdamW under warmup_cosine(3e-3, warmup 2, total 6)
@@ -236,7 +275,7 @@ MOE_RTOL = 2e-2
 # the MoE train path: granite at full width with its depth cut from 32 to 2
 # layers, B 4, S 1024, AdamW under warmup_cosine(3e-3, warmup 2, total 4),
 # deterministic mode, through the sharded step on a (1, 1) NCCL mesh; steps
-# 1-2 run twice from one seed and must agree bit for bit
+# 1-2 run again from one seed and must agree with the first run bit for bit
 MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 2, 4, 1024, 4
 MOE_REPEAT_STEPS = 2
 # the dense family: qwen3-4b and qwen2-vl-7b (its embeddings input) at full
@@ -258,6 +297,29 @@ WINDOW_F32_RTOL = 1e-4
 # saved as 4 ranks and restored on this card; VLM_STATE_DECODE decode steps
 # from the restored cache and from the original
 VLM_STATE_B, VLM_STATE_P, VLM_STATE_LEN, VLM_STATE_DECODE = 2, 512, 520, 8
+# xlstm-350m at full size served through the launcher's serve_batch at B 4,
+# prompt 512, XLSTM_G decode steps; decode step g against one prefill of
+# the prompt and g tokens within XLSTM_RTOL of the logits' scale, same
+# argmax.  In bf16 the two paths round activations at other places over
+# 24 layers (the chunkwise mLSTM against its one-step form, products at
+# other shapes): measured on an H100 at 0.038-0.040 of the largest logit
+# (an initial 2e-2 did not hold), so the limit is 2x that; the same step
+# for the same weights in f32 is held within XLSTM_F32_RTOL
+XLSTM_B, XLSTM_P, XLSTM_G = 4, 512, 32
+XLSTM_RTOL = 0.08
+XLSTM_F32_RTOL = 1e-4
+# its O(1) serving state after a B 2, prompt-512 prefill (101 MB, 12 mLSTM
+# matrix memories of [2, 4, 512, 512] f32) saved as 4 ranks, restored on
+# this card; XLSTM_STATE_DECODE decode steps from each, logits bit-equal
+XLSTM_STATE_B, XLSTM_STATE_DECODE = 2, 8
+# trained at full size (353.8 M parameters, a 3.54 GB AdamW state), B 4,
+# S 512, deterministic mode: XLSTM_TRAIN_STEPS steps and steps 1-2 again
+# bit-equal; then the kill and resume at XLSTM_RESUME_LAYERS (one
+# mLSTM/sLSTM pair at full width, a 0.767 GB state: the general restore
+# path reads 0.011-0.018 GiB/s, so the full state would take minutes)
+XLSTM_TRAIN_B, XLSTM_TRAIN_S = 4, 512
+XLSTM_TRAIN_STEPS, XLSTM_REPEAT_STEPS = 4, 2
+XLSTM_RESUME_LAYERS = 2
 
 
 def emit(obj) -> None:
@@ -681,6 +743,129 @@ def check_rglru_scan(W: int) -> dict:
             "back_to_back_calls": len(back_to_back), "cases": results}
 
 
+def check_rglru_scan_vjp(W: int) -> dict:
+    """The scan's gradient, ``lru_scan_vjp`` (kernel forward, kernel
+    backward), against autograd through the plain version on the same card
+    tensors and upstream gradients, at the hybrid train path's shape (with
+    h0) and a ragged one, in deterministic mode (the train path's: chained
+    carries) and in default mode (the decoupled look-back); the kernel's
+    bits over repeated launches in both modes, each launch held to the
+    plain version; the backward's times."""
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def inputs(B, S, Wc, with_h0):
+        # the model's gate range (models/rglru.py::_lru_gates)
+        lam = rnd(Wc)
+        a = torch.exp(-8.0 * torch.logaddexp(lam, torch.zeros_like(lam))
+                      * torch.rand((B, S, Wc), generator=gen, device="cuda"))
+        b = torch.sqrt(1.0 - a * a) * rnd(B, S, Wc)
+        return a, b, rnd(B, Wc) if with_h0 else None, rnd(B, S, Wc), \
+            rnd(B, Wc)
+
+    def graph(fn, a, b, h0, g, g_last):
+        ins = [t.clone().requires_grad_(True) for t in (a, b, h0)
+               if t is not None]
+        h, h_last = fn(ins[0], ins[1], ins[2] if h0 is not None else None)
+        return lambda: torch.autograd.grad((h, h_last), ins, (g, g_last),
+                                           retain_graph=True)
+
+    def outside(got, want):
+        """Elements outside SCAN_ATOL + SCAN_RTOL |want|, or not finite."""
+        err = (got - want).abs()
+        return int((err > SCAN_ATOL + SCAN_RTOL * want.abs()).sum()) \
+            + int((~torch.isfinite(got)).sum()), float(err.max())
+
+    shapes = ((HYBRID_TRAIN_B, HYBRID_TRAIN_S, W, True), (2, 300, 1000, False))
+    inputs_of = {shape: inputs(*shape) for shape in shapes}
+    was = torch.are_deterministic_algorithms_enabled()
+    cases, worst, repeats = [], 0.0, {}
+    try:
+        for mode in (True, False):
+            torch.use_deterministic_algorithms(mode)
+            for shape in shapes:
+                x = inputs_of[shape]
+                scan_ops.launches = 0
+                got = graph(scan_ops.lru_scan_vjp, *x)()
+                torch.cuda.synchronize()
+                launched = scan_ops.launches
+                want = graph(rglru_scan_ref, *x)()
+                line = {"deterministic": mode, "shape": list(shape[:3]),
+                        "h0": shape[3], "launches": launched}
+                for name, u, v in zip(("da", "db", "dh0"), got, want):
+                    bad, err = outside(u, v)
+                    line[name] = {"max_abs_err": err,
+                                  "max_abs": float(v.abs().max()),
+                                  "outside_tol": bad}
+                    worst = max(worst, err)
+                cases.append(line)
+                if launched != 2 or any(line[n]["outside_tol"] for n in
+                                        ("da", "db", "dh0") if n in line):
+                    raise AssertionError(f"rglru_scan's gradient outside "
+                                         f"tolerance or not two launches: "
+                                         f"{line}")
+                del got, want
+        # the train shape: in each mode, SCAN_REPEATS forward launches,
+        # each held to the plain version; in deterministic mode (chained
+        # carries) all bit-equal, and how often the decoupled look-back's
+        # differ; then the times
+        a, b, h0, g, g_last = inputs_of[shapes[0]]
+        want = rglru_scan_ref(a, b, h0)[0]
+        for mode in (False, True):
+            torch.use_deterministic_algorithms(mode)
+            runs = [scan_ops.lru_scan(a, b, h0)[0]
+                    for _ in range(SCAN_REPEATS)]
+            bad = [outside(h, want)[0] for h in runs]
+            if any(bad):
+                raise AssertionError(f"rglru_scan's repeated launches "
+                                     f"(deterministic {mode}) outside "
+                                     f"tolerance: {bad}")
+            repeats[mode] = sum(not torch.equal(h, runs[0])
+                                for h in runs[1:])
+            del runs
+        backward = graph(scan_ops.lru_scan_vjp, a, b, h0, g, g_last)
+        runs = [backward() for _ in range(2)]
+        if repeats[True] or not all(torch.equal(u, v)
+                                    for u, v in zip(*runs)):
+            raise AssertionError(f"rglru_scan in deterministic mode does not "
+                                 f"repeat: {repeats[True]} of "
+                                 f"{SCAN_REPEATS - 1} forward launches "
+                                 f"differ, or the two backward runs do")
+        del runs, want
+        chained_ms = time_ms(lambda: scan_ops.lru_scan(a, b, h0))
+        bwd_ms = time_ms(backward)
+        torch.use_deterministic_algorithms(False)
+        forward_ms = time_ms(lambda: scan_ops.lru_scan(a, b, h0))
+        decoupled_bwd_ms = time_ms(backward)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    del backward
+    plain = graph(rglru_scan_ref, a, b, h0, g, g_last)
+    plain_ms = time_ms(plain, iters=5)
+    del plain
+    B, S = HYBRID_TRAIN_B, HYBRID_TRAIN_S
+    # read a, h, g, g_last and h0; write da, db and dh0
+    nbytes = 4 * (5 * B * S * W + 3 * B * W)
+    return {"shape": [B, S, W], "h0": True, "max_abs_err": worst,
+            "tolerance": {"atol": SCAN_ATOL, "rtol": SCAN_RTOL},
+            "cases": cases, "repeats": SCAN_REPEATS,
+            "repeated_launches_within_tol": True,
+            "forward_launches_differing_default": repeats[False],
+            "forward_launches_differing_deterministic": repeats[True],
+            "backward_runs_bit_equal_deterministic": True,
+            "forward_ms": forward_ms, "forward_ms_deterministic": chained_ms,
+            "forward_bound_ms": 4 * (3 * B * S * W + 2 * B * W)
+            / HBM_BYTES_PER_S * 1e3,
+            "ms": bwd_ms, "ms_default_mode": decoupled_bwd_ms,
+            "plain_ms": plain_ms, "bytes_moved": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
 # -------------------------------------------------------------- main path
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal dtypes and equal bytes."""
@@ -933,9 +1118,11 @@ def phase_hybrid_state(api, params, kept, store_dir: str, nranks: int,
             **line, "continued_tokens_identical": True}
 
 
-def phase_hybrid_consistency(api, params, tokens, kept) -> dict:
-    """Row 0: the logits of decode step g against one prefill of the prompt
-    plus the first g generated tokens."""
+def decode_vs_prefill(api, params, tokens, kept, rtol: float) -> dict:
+    """Row 0: the logits of decode step g (``kept["step_logits"][g]``, for
+    g in CONSISTENCY_STEPS) against one prefill of the prompt plus the
+    first g generated tokens, within ``rtol`` of the largest prefill logit
+    and with the same argmax.  ``failed`` lists the cases outside."""
     out = kept["tokens"]
     dev = params["embed"].device
     results = []
@@ -952,14 +1139,9 @@ def phase_hybrid_consistency(api, params, tokens, kept) -> dict:
                         "max_abs_logit": scale, "rel": diff / scale,
                         "same_argmax": int(got.argmax()) == int(want.argmax()),
                         "prefill_top2_gap": float(top2[0] - top2[1])})
-    line = {"phase": "hybrid_consistency", "rtol": CONSISTENCY_RTOL,
-            "cases": results}
-    emit(line)
-    bad = [r for r in results
-           if not r["same_argmax"] or r["rel"] > CONSISTENCY_RTOL]
-    if bad:
-        raise AssertionError(f"decode disagrees with prefill: {bad}")
-    return line
+    return {"rtol": rtol, "cases": results,
+            "failed": [r for r in results
+                       if not r["same_argmax"] or r["rel"] > rtol]}
 
 
 # ------------------------------------------------------------ train path
@@ -1008,30 +1190,34 @@ def check_flash_vjp(cfg, device) -> dict:
     return line
 
 
-def phase_train(cfg, device, store_dirs) -> dict:
-    """Runs A, B and C (see the module docstring) through the TorchTrainer,
-    with the launch counts at 0 just before each run and read just after."""
+def kill_and_resume(api, B: int, S: int, store_dirs, device,
+                    per_step: dict | None = None, keep=()) -> tuple:
+    """Runs A, B and C (see the module docstring) of ``api`` at batch B and
+    sequence S through the TorchTrainer in deterministic mode, with the
+    launch counts at 0 just before each run and read just after: each
+    kernel named in ``per_step`` must have launched that many times a step
+    run, and ckpt_pack on every save.  Run C must end in A's state and
+    losses bit for bit.  The arrays named in ``keep`` are cloned after step
+    SWEEP_CHECK_A of run A, at the step C restores and at C's end.
+    Returns the line and those clones by step."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.device import use_deterministic_algorithms
     from repro_torch.kernels.ckpt_pack import ops as pack_ops
     from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.models.api import build_model
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
     from repro_torch.train import (AdamW, SimulatedPreemption, SyntheticLM,
                                    TorchTrainer, TrainerConfig,
                                    init_train_state, make_train_step,
                                    warmup_cosine)
 
     use_deterministic_algorithms()
-    api = build_model(cfg)
+    per_step = per_step or {}
     opt = AdamW()
     step = make_train_step(
         api, opt, functools.partial(warmup_cosine, base_lr=TRAIN_LR,
                                     warmup=TRAIN_WARMUP, total=TRAIN_STEPS),
-        ShapeConfig("train", TRAIN_S, TRAIN_B, "train"))
+        ShapeConfig("train", S, B, "train"))
     step_seconds, step_fn = [], step.fn
-    # clones of the arrays the postprocess phase sweeps, for each step run
-    # B or C commits: run A's after step SWEEP_CHECK_A, those run C
-    # restores, and run C's at the end
     kept, capture_a = {}, False
 
     def timed_step(state, batch):
@@ -1041,11 +1227,11 @@ def phase_train(cfg, device, store_dirs) -> dict:
         torch.cuda.synchronize()
         step_seconds.append(time.perf_counter() - t0)
         if capture_a and int(out[0]["step"]) == SWEEP_CHECK_A:
-            kept[SWEEP_CHECK_A] = {n: out[0][n].clone() for n in SWEEP_ARRAYS}
+            kept[SWEEP_CHECK_A] = {n: out[0][n].clone() for n in keep}
         return out
 
     step = dataclasses.replace(step, fn=timed_step)
-    data = SyntheticLM(cfg.vocab, TRAIN_S, TRAIN_B, seed=SEED)
+    data = SyntheticLM(api.cfg.vocab, S, B, seed=SEED)
 
     def trainer(store_dir, ckpt_every):
         return TorchTrainer(
@@ -1054,26 +1240,25 @@ def phase_train(cfg, device, store_dirs) -> dict:
             init_state_fn=lambda: init_train_state(
                 api, opt, torch.Generator(device=device).manual_seed(SEED)))
 
-    vjp = check_flash_vjp(cfg, device)
-    per_step = 2 * cfg.num_layers     # remat re-runs each layer's forward
-    launches = {"flash_attention": 0, "ckpt_pack": 0}
+    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0}
 
     def counted(run, steps_run, saves):
         """``run()`` with the counts at 0 just before and read just after;
-        the attention kernel must have launched ``per_step`` times a step
-        run, ckpt_pack on every save."""
-        pack_ops.launches = attn_ops.launches = 0
+        each kernel in ``per_step`` must have launched that many times a
+        step run, ckpt_pack on every save."""
+        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
         per_save = []
         out = run(per_save)
-        got = {"flash_attention": attn_ops.launches,
-               "ckpt_pack": pack_ops.launches}
+        got = {"ckpt_pack": pack_ops.launches,
+               "flash_attention": attn_ops.launches,
+               "rglru_scan": scan_ops.launches}
         for k, n in got.items():
             launches[k] += n
-        if got["flash_attention"] != per_step * steps_run:
-            raise AssertionError(f"flash_attention launched "
-                                 f"{got['flash_attention']} times in "
-                                 f"{steps_run} steps, not "
-                                 f"{per_step * steps_run}")
+        for k, n in per_step.items():
+            if got[k] != n * steps_run:
+                raise AssertionError(f"{k} launched {got[k]} times in "
+                                     f"{steps_run} steps, not "
+                                     f"{n * steps_run}")
         if len(per_save) != saves or not all(per_save):
             raise AssertionError(f"ckpt_pack launches per save {per_save}, "
                                  f"expected {saves} saves, each above 0")
@@ -1127,7 +1312,7 @@ def phase_train(cfg, device, store_dirs) -> dict:
     t_restore = time.perf_counter() - t0
     if start != committed:
         raise AssertionError(f"restored step {start}, not {committed}")
-    kept[start] = {n: state[n].clone() for n in SWEEP_ARRAYS}
+    kept[start] = {n: state[n].clone() for n in keep}
     rc, c_counts, c_saves = counted(
         lambda ps: counting_saves(tc, ps).run(TRAIN_STEPS, start_state=state,
                                               start_step=start),
@@ -1138,7 +1323,7 @@ def phase_train(cfg, device, store_dirs) -> dict:
     if differ:
         raise AssertionError(f"the resumed run's state differs from the "
                              f"straight run's in {differ}")
-    kept[TRAIN_STEPS] = {n: rc["state"][n].clone() for n in SWEEP_ARRAYS}
+    kept[TRAIN_STEPS] = {n: rc["state"][n].clone() for n in keep}
     resumed = {h["step"]: h["loss"] for h in tc.history}
     straight = {h["step"]: h["loss"] for h in ta.history}
     if any(resumed[s] != straight[s] for s in resumed):
@@ -1147,16 +1332,16 @@ def phase_train(cfg, device, store_dirs) -> dict:
     state_bytes = sum(t.numel() * t.element_size()
                       for t in ra["state"].values())
     median = float(np.median(a_times[1:]))
-    return {"phase": "train", "arch": cfg.arch, "layers": cfg.num_layers,
+    cfg = api.cfg
+    return {"arch": cfg.arch, "layers": cfg.num_layers,
             "params": sum(t.numel() for k, t in ra["state"].items()
                           if k.startswith("params/")),
-            "state_bytes": state_bytes, "batch": TRAIN_B, "seq": TRAIN_S,
+            "state_bytes": state_bytes, "batch": B, "seq": S,
             "attention_impl": cfg.attention_impl, "remat": cfg.remat,
             "deterministic": torch.are_deterministic_algorithms_enabled(),
-            "vjp_check": vjp,
             "losses": losses, "step_seconds_a": a_times,
             "step_ms_median_2_to_6": median * 1e3,
-            "tokens_per_s": TRAIN_B * TRAIN_S / median,
+            "tokens_per_s": B * S / median,
             "peak_memory_allocated": peak,
             "saves": [{**s, "ckpt_pack_launches": n,
                        "write_seconds": writes.get(f"state/s{s['step']}")}
@@ -1166,8 +1351,25 @@ def phase_train(cfg, device, store_dirs) -> dict:
             "resumed_losses": resumed, "bit_exact_with_straight_run": True,
             "launches": {"a": a_counts, "b": b_counts, "c": c_counts,
                          "c_ckpt_pack_per_save": c_saves,
-                         "flash_attention_per_step": per_step},
+                         "per_step": per_step},
             "total_launches": launches}, kept
+
+
+def phase_train(cfg, device, store_dirs) -> tuple[dict, dict]:
+    """smollm's A, B and C (``kill_and_resume``) at TRAIN_B, TRAIN_S after
+    the attention kernel's gradient check; the attention kernel must launch
+    twice a layer a step (remat re-runs each layer's forward).  Returns the
+    line and the arrays the postprocess phase sweeps, by step."""
+    from repro_torch.device import use_deterministic_algorithms
+    from repro_torch.models.api import build_model
+
+    use_deterministic_algorithms()
+    api = build_model(cfg)
+    vjp = check_flash_vjp(cfg, device)
+    line, kept = kill_and_resume(
+        api, TRAIN_B, TRAIN_S, store_dirs, device,
+        per_step={"flash_attention": 2 * cfg.num_layers}, keep=SWEEP_ARRAYS)
+    return {"phase": "train", **line, "vjp_check": vjp}, kept
 
 
 def fem_field(t: int):
@@ -1645,89 +1847,27 @@ def phase_moe_state(api, params, kept, store_dir: str, nranks: int,
 
 def phase_moe_train(cfg, device) -> dict:
     """Granite at full width, depth cut to MOE_TRAIN_LAYERS, trained
-    through the sharded step on a (1, 1) NCCL mesh in deterministic mode:
+    through the sharded step on a (1, 1) NCCL mesh (``repeat_train``):
     MOE_TRAIN_STEPS steps, then steps 1..MOE_REPEAT_STEPS again from the
-    same seed, bit-equal in every array.  The launch counts are set to 0
-    by the caller just before and read just after."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.device import use_deterministic_algorithms
-    from repro_torch.distrib.rules import local_box
+    same seed, bit-equal; the aux loss finite and positive.  The launch
+    counts are set to 0 by the caller just before and read just after."""
     from repro_torch.launch.mesh import init_distributed, make_debug_mesh
     from repro_torch.models.api import build_model
-    from repro_torch.train import (AdamW, SyntheticLM, init_train_state,
-                                   make_train_step, warmup_cosine)
-    from repro_torch.train.step import shard_state
 
-    use_deterministic_algorithms()
     api = build_model(cfg)
     init_distributed("cuda", rank=0, world_size=1)
     try:
-        mesh = make_debug_mesh(1, 1, device_type="cuda")
-        step = make_train_step(
-            api, AdamW(), functools.partial(
-                warmup_cosine, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
-                total=MOE_TRAIN_STEPS),
-            ShapeConfig("train", MOE_TRAIN_S, MOE_TRAIN_B, "train"),
-            mesh=mesh)
-        data = SyntheticLM(cfg.vocab, MOE_TRAIN_S, MOE_TRAIN_B, seed=SEED)
-
-        def run(steps):
-            state = shard_state(init_train_state(
-                api, AdamW(), torch.Generator(device=device).manual_seed(
-                    SEED)), mesh, step.state_shardings)
-            history, seconds = [], []
-            for i in range(steps):
-                batch = {k: torch.from_numpy(np.ascontiguousarray(v[
-                    local_box(v.shape, mesh, step.batch_shardings[k])
-                    .slices()])).to(device)
-                    for k, v in data.batch(i).items()}
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, m = step(state, batch)
-                torch.cuda.synchronize()
-                seconds.append(time.perf_counter() - t0)
-                history.append({k: float(v) for k, v in m.items()})
-            return {k: t.to_local() for k, t in state.items()}, history, \
-                seconds
-
-        torch.cuda.reset_peak_memory_stats()
-        first, history, seconds = run(MOE_TRAIN_STEPS)
-        peak = torch.cuda.max_memory_allocated()
-        # the state after steps 1..MOE_REPEAT_STEPS, twice from one seed
-        twice = [run(MOE_REPEAT_STEPS)[0] for _ in range(2)]
+        line = repeat_train(api, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS,
+                            MOE_REPEAT_STEPS, device,
+                            mesh=make_debug_mesh(1, 1, device_type="cuda"))
     finally:
         torch.distributed.destroy_process_group()
-    losses = [h["loss"] for h in history]
-    aux = [h["aux"] for h in history]
-    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"the MoE run's loss is not finite and "
-                             f"falling: {losses}")
+    aux = line["metrics"]["aux"]
     if not all(np.isfinite(a) and a > 0 for a in aux):
         raise AssertionError(f"the aux loss is not finite and positive: "
                              f"{aux}")
-    differ = [k for k in twice[0] if not _same_bits(twice[0][k],
-                                                    twice[1][k])]
-    if differ:
-        raise AssertionError(f"two runs of steps 1-{MOE_REPEAT_STEPS} from "
-                             f"one seed differ in {differ}")
-    n_params = sum(t.numel() for k, t in first.items()
-                   if k.startswith("params/"))
-    return {"phase": "moe_train", "arch": cfg.arch,
-            "layers": cfg.num_layers,
-            "params": n_params, "batch": MOE_TRAIN_B, "seq": MOE_TRAIN_S,
-            "mesh": [1, 1], "attention_impl": cfg.attention_impl,
-            "remat": cfg.remat,
-            "deterministic": torch.are_deterministic_algorithms_enabled(),
-            "losses": losses, "aux": aux,
-            "xent": [h["xent"] for h in history],
-            "grad_norm": [h["grad_norm"] for h in history],
-            "step_ms": [t * 1e3 for t in seconds],
-            "step_ms_median_2_on": float(np.median(seconds[1:])) * 1e3,
-            "tokens_per_s": MOE_TRAIN_B * MOE_TRAIN_S
-            / float(np.median(seconds[1:])),
-            "peak_memory_allocated": peak,
-            "repeat_bit_equal_arrays": len(twice[0]),
-            "steps_run": MOE_TRAIN_STEPS + 2 * MOE_REPEAT_STEPS}
+    return {"phase": "moe_train", **line, "mesh": [1, 1],
+            "attention_impl": cfg.attention_impl}
 
 
 def moe_paths(device, store_dir: str) -> dict:
@@ -2071,6 +2211,293 @@ def dense_paths(device, store_dir: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------ recurrent training
+def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
+                 mesh=None) -> dict:
+    """``steps`` steps of ``make_train_step`` (sharded over ``mesh`` when one
+    is given) in deterministic mode from the seeded state (finite, falling
+    loss), the state after step ``repeat`` kept on the host; then steps
+    1..``repeat`` again from the same seed, bit-equal to it in every array
+    and every loss.  The launch counts are set to 0 by the caller just
+    before and read just after."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.device import use_deterministic_algorithms
+    from repro_torch.distrib.rules import local_box
+    from repro_torch.train import (AdamW, SyntheticLM, init_train_state,
+                                   make_train_step, warmup_cosine)
+    from repro_torch.train.step import shard_state
+
+    use_deterministic_algorithms()
+    step = make_train_step(api, AdamW(), functools.partial(
+        warmup_cosine, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total=steps),
+        ShapeConfig("train", S, B, "train"), mesh=mesh)
+    data = SyntheticLM(api.cfg.vocab, S, B, seed=SEED)
+
+    def local(state):
+        return state if mesh is None else {k: t.to_local()
+                                           for k, t in state.items()}
+
+    def batch(i):
+        def mine(k, v):     # this process's block of the batch array
+            return v if mesh is None else np.ascontiguousarray(v[local_box(
+                v.shape, mesh, step.batch_shardings[k]).slices()])
+        return {k: torch.from_numpy(mine(k, v)).to(device)
+                for k, v in data.batch(i).items()}
+
+    def run(n):
+        state = init_train_state(
+            api, AdamW(), torch.Generator(device=device).manual_seed(SEED))
+        if mesh is not None:
+            state = shard_state(state, mesh, step.state_shardings)
+        history, seconds, kept = [], [], None
+        for i in range(n):
+            inputs = batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, inputs)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            history.append({k: float(v) for k, v in m.items()})
+            if i + 1 == repeat:
+                kept = {k: t.cpu() for k, t in local(state).items()}
+        return local(state), history, seconds, kept
+
+    torch.cuda.reset_peak_memory_stats()
+    state, history, seconds, kept = run(steps)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for k, t in state.items()
+                   if k.startswith("params/"))
+    state_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    del state
+    again, again_history, _, _ = run(repeat)
+    differ = [k for k in kept if not _same_bits(kept[k], again[k].cpu())]
+    n_arrays = len(kept)
+    del again, kept
+    losses = [h["loss"] for h in history]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss is not finite and falling: {losses}")
+    if differ or [h["loss"] for h in again_history] != losses[:repeat]:
+        raise AssertionError(f"two runs of steps 1-{repeat} from one seed "
+                             f"differ in {differ or 'their losses'}")
+    median = float(np.median(seconds[1:]))
+    return {"arch": api.cfg.arch, "layers": api.cfg.num_layers,
+            "params": n_params, "state_bytes": state_bytes, "batch": B,
+            "seq": S, "remat": api.cfg.remat,
+            "deterministic": torch.are_deterministic_algorithms_enabled(),
+            "losses": losses,
+            "metrics": {k: [h[k] for h in history] for k in history[0]
+                        if k != "loss"},
+            "step_ms": [t * 1e3 for t in seconds],
+            "step_ms_median_2_on": median * 1e3,
+            "tokens_per_s": B * S / median, "peak_memory_allocated": peak,
+            "repeat_steps": repeat, "repeat_bit_equal_arrays": n_arrays,
+            "steps_run": steps + repeat}
+
+
+def slstm_share(api, params, batch) -> dict:
+    """One more prefill of ``batch`` with each sLSTM block's time taken
+    alone (a synchronise either side): the time loop's share of the
+    prefill."""
+    from repro_torch.models import xlstm
+
+    inner, spent = xlstm._slstm_block, [0.0]
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    xlstm._slstm_block = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            api.prefill(params, batch)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        xlstm._slstm_block = inner
+    return {"prefill_seconds_timed": total, "slstm_seconds": spent[0],
+            "slstm_share_of_prefill": spent[0] / total}
+
+
+def xlstm_f32_reading(api, params, tokens) -> dict:
+    """The first decode step after a prefill of ``tokens`` [1, P] against
+    one prefill of P + 1, for the same weights cast to f32, within
+    XLSTM_F32_RTOL of the logits' scale and with the same argmax; and the
+    bf16 floor: the bf16 prefill of P + 1 against the f32 one."""
+    f32 = {k: v.float() for k, v in params.items()}
+    P = tokens.shape[1]
+    first, cache = api.prefill(f32, {"tokens": tokens})
+    token = torch.argmax(first, -1).to(torch.int32)[:, None]
+    got, _ = api.decode_step(f32, cache, {"token": token, "pos": torch.full(
+        (1,), P, dtype=torch.int32, device=tokens.device)})
+    longer = {"tokens": torch.cat([tokens, token], dim=1)}
+    want, _ = api.prefill(f32, longer)
+    bf16, _ = api.prefill(params, longer)
+    scale = float(want.abs().max())
+    line = {"rtol": XLSTM_F32_RTOL,
+            "rel": float((got - want).abs().max()) / scale,
+            "same_argmax": bool((got.argmax(-1) == want.argmax(-1)).all()),
+            "bf16_prefill_rel_vs_f32": float((bf16.float() - want).abs()
+                                             .max()) / scale}
+    if line["rel"] > XLSTM_F32_RTOL or not line["same_argmax"]:
+        raise AssertionError(f"xlstm decode disagrees with prefill in "
+                             f"f32: {line}")
+    return line
+
+
+def recurrent_paths(device, store_dirs) -> dict:
+    """The recurrent families' phases, each path with the launch counts at
+    0 just before it and read just after: ``hybrid_train``
+    (recurrentgemma-9b at 3 layers), ``xlstm_serve``, ``xlstm_state`` and
+    ``xlstm_train`` (xlstm-350m).  Returns the launches per kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ckpt_pack import ops as pack_ops
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.launch.serve import decode_steps, prompt_batch
+    from repro_torch.models.api import build_model
+
+    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0}
+
+    def zero():
+        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+
+    def read():
+        got = {"ckpt_pack": pack_ops.launches,
+               "flash_attention": attn_ops.launches,
+               "rglru_scan": scan_ops.launches}
+        for k, n in got.items():
+            launches[k] += n
+        return got
+
+    # ---- hybrid_train: counts at 0 just before, read just after
+    t0 = time.perf_counter()
+    cfg = get_config("recurrentgemma_9b")
+    api = build_model(dataclasses.replace(cfg,
+                                          num_layers=HYBRID_TRAIN_LAYERS))
+    zero()
+    train = {"phase": "hybrid_train", **repeat_train(
+        api, HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS,
+        HYBRID_REPEAT_STEPS, device)}
+    train["layers_cut_from"] = cfg.num_layers
+    train["kernel_launches"] = read()
+    # each RG-LRU layer a step: the forward, remat's recompute, backward
+    n_lru = sum(k == "lru" for k in api.cfg.layer_kinds())
+    per_step = (3 if api.cfg.remat else 2) * n_lru
+    train["rglru_scan_per_step"] = per_step
+    if train["kernel_launches"]["rglru_scan"] != per_step * train["steps_run"]:
+        raise AssertionError(f"rglru_scan launched "
+                             f"{train['kernel_launches']['rglru_scan']} "
+                             f"times in {train['steps_run']} steps, not "
+                             f"{per_step} a step")
+    train["phase_seconds"] = time.perf_counter() - t0
+    emit(train)
+    del api
+    torch.cuda.empty_cache()
+
+    # ---- xlstm_serve: counts at 0 just before, read just after
+    cfg = get_config("xlstm_350m")
+    api = build_model(cfg)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator(device=device).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        batch = prompt_batch(cfg, XLSTM_B, XLSTM_P, device)
+        step_logits = {}
+
+        def on_step(i, logits):
+            if i in CONSISTENCY_STEPS:
+                step_logits[i] = logits[0].float().clone()
+
+        zero()
+        serve, kept = phase_serve_batch("xlstm_serve", api, params, batch,
+                                        XLSTM_G, device, on_step=on_step)
+        serve["kernel_launches"] = read()
+        kept["step_logits"] = step_logits
+        serve["init_seconds"] = t_init
+        serve["state_bytes"] = sum(t.numel() * t.element_size()
+                                   for t in kept["cache"].values())
+        serve.update(check_repeated_prefill(api, params, batch, kept,
+                                            XLSTM_P + XLSTM_G))
+        serve.update(slstm_share(api, params, batch))
+        serve["decode_vs_prefill"] = decode_vs_prefill(
+            api, params, batch["tokens"], kept, XLSTM_RTOL)
+        serve["decode_vs_prefill_f32"] = xlstm_f32_reading(
+            api, params, batch["tokens"][:1])
+        serve["phase_seconds"] = time.perf_counter() - t0
+        emit(serve)
+        if serve["decode_vs_prefill"]["failed"]:
+            raise AssertionError(f"xlstm decode disagrees with prefill: "
+                                 f"{serve['decode_vs_prefill']['failed']}")
+        del kept, batch
+
+        # ---- xlstm_state: counts at 0 just before, read just after
+        t0 = time.perf_counter()
+        tokens = prompt_batch(cfg, XLSTM_STATE_B, XLSTM_P, device)["tokens"]
+        zero()
+        first, live = api.prefill(params, {"tokens": tokens})
+        line, restored = save_restore(
+            live, api.abstract_cache(XLSTM_STATE_B, XLSTM_P),
+            store_dirs[0], NRANKS, device)
+        token = torch.argmax(first, -1).to(torch.int32)[:, None]
+        runs = []
+        for cache in (live, restored):
+            logits = []
+            toks = decode_steps(api, params, cache, token, XLSTM_P,
+                                XLSTM_STATE_DECODE, device,
+                                on_step=lambda i, x: logits.append(x))
+            runs.append((torch.cat(toks, 1), logits))
+        state = {"phase": "xlstm_state",
+                 "arrays": {k: [list(v.shape),
+                                str(v.dtype).removeprefix("torch.")]
+                            for k, v in live.items()},
+                 **line, "kernel_launches": read(),
+                 "decode_steps_from_restored": XLSTM_STATE_DECODE}
+        if not (torch.equal(runs[0][0], runs[1][0]) and all(
+                _same_bits(a, b) for a, b in zip(runs[0][1], runs[1][1]))):
+            raise AssertionError("decoding from the restored state differs "
+                                 "from decoding from the live one")
+        state["continued_logits_bit_equal"] = True
+        if not state["kernel_launches"]["ckpt_pack"]:
+            raise AssertionError("ckpt_pack never launched in the xlstm "
+                                 "state's save")
+        state["phase_seconds"] = time.perf_counter() - t0
+        emit(state)
+        del params, live, restored, runs
+        torch.cuda.empty_cache()
+
+    # ---- xlstm_train: full size, steps repeated; then the kill and resume
+    # at XLSTM_RESUME_LAYERS; counts at 0 just before, read just after
+    t0 = time.perf_counter()
+    zero()
+    train = {"phase": "xlstm_train", **repeat_train(
+        api, XLSTM_TRAIN_B, XLSTM_TRAIN_S, XLSTM_TRAIN_STEPS,
+        XLSTM_REPEAT_STEPS, device)}
+    train["kernel_launches"] = read()
+    torch.cuda.empty_cache()
+    # A, B and C count each run's launches themselves (ckpt_pack on every
+    # save)
+    t1 = time.perf_counter()
+    small = build_model(dataclasses.replace(cfg,
+                                            num_layers=XLSTM_RESUME_LAYERS))
+    train["resume"], _ = kill_and_resume(small, XLSTM_TRAIN_B, XLSTM_TRAIN_S,
+                                         store_dirs[1:], device)
+    for k, n in train["resume"]["total_launches"].items():
+        launches[k] += n
+    train["resume"]["layers_cut_from"] = cfg.num_layers
+    train["resume"]["phase_seconds"] = time.perf_counter() - t1
+    train["phase_seconds"] = time.perf_counter() - t0
+    emit(train)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not (ROOT / "repro_torch" / "__init__.py").exists():
@@ -2112,6 +2539,8 @@ def main(argv=None) -> int:
     fem_store = tempfile.mkdtemp(prefix="fem_", dir=scratch)
     moe_store = tempfile.mkdtemp(prefix="moe_", dir=scratch)
     vlm_store = tempfile.mkdtemp(prefix="vlm_", dir=scratch)
+    recurrent_stores = [tempfile.mkdtemp(prefix="xlstm_", dir=scratch)
+                        for _ in range(3)]
     try:
         with torch.inference_mode():
             params = api.init(torch.Generator(device=device).manual_seed(SEED))
@@ -2121,10 +2550,12 @@ def main(argv=None) -> int:
             kernels = [check_ckpt_pack(params, layout, ownership),
                        check_flash_attention(cfg),
                        check_rglru_scan(hcfg.lru_width)]
-            for entry in kernels:
-                emit({"phase": "kernels", **entry})
-            if "--kernels-only" in argv:
-                return 0
+        # autograd through the scan (outside inference mode)
+        kernels[2]["backward"] = check_rglru_scan_vjp(hcfg.lru_width)
+        for entry in kernels:
+            emit({"phase": "kernels", **entry})
+        if "--kernels-only" in argv:
+            return 0
         dense, hybrid, train = earlier_paths(
             api, cfg, hapi, hcfg, params, layout, ownership, device,
             store_dir, hybrid_store, train_stores, fem_store)
@@ -2144,21 +2575,28 @@ def main(argv=None) -> int:
         # served (qwen2-vl's cache restarted 4 -> 1), gemma2-2b past its
         # window
         family_launches = dense_paths(device, vlm_store)
+        # ---- the recurrent families train: recurrentgemma-9b at 3 layers;
+        # xlstm-350m served, its state restarted 4 -> 1, and trained
+        recurrent_launches = recurrent_paths(device, recurrent_stores)
     finally:
         for d in [store_dir, hybrid_store, fem_store, moe_store,
-                  vlm_store] + train_stores:
+                  vlm_store] + train_stores + recurrent_stores:
             shutil.rmtree(d, ignore_errors=True)
     launches = {"ckpt_pack": dense["ckpt_pack"] + hybrid["ckpt_pack"]
                 + train["total_launches"]["ckpt_pack"]
                 + elastic_launches["ckpt_pack"] + moe_launches["ckpt_pack"]
-                + family_launches["ckpt_pack"],
+                + family_launches["ckpt_pack"]
+                + recurrent_launches["ckpt_pack"],
                 "flash_attention": dense["flash_attention"]
                 + train["total_launches"]["flash_attention"]
                 + elastic_launches["flash_attention"]
                 + moe_launches["flash_attention"]
-                + family_launches["flash_attention"],
+                + family_launches["flash_attention"]
+                + recurrent_launches["flash_attention"],
                 "rglru_scan": hybrid["rglru_scan"]
-                + family_launches["rglru_scan"]}
+                + train["total_launches"]["rglru_scan"]
+                + family_launches["rglru_scan"]
+                + recurrent_launches["rglru_scan"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: e[k] for k in keys}
@@ -2224,7 +2662,12 @@ def earlier_paths(api, cfg, hapi, hcfg, params, layout, ownership, device,
         if not all(hybrid.values()):
             raise AssertionError(f"a kernel of the hybrid path never "
                                  f"launched: {hybrid}")
-        phase_hybrid_consistency(hapi, hparams, tokens, kept)
+        line = decode_vs_prefill(hapi, hparams, tokens, kept,
+                                 CONSISTENCY_RTOL)
+        emit({"phase": "hybrid_consistency", **line})
+        if line["failed"]:
+            raise AssertionError(f"decode disagrees with prefill: "
+                                 f"{line['failed']}")
         del hparams, kept, tokens
         torch.cuda.empty_cache()
 

@@ -19,6 +19,7 @@ ARCHS = [
     "gemma2_2b",
     "qwen3_4b",
     "qwen2_vl_7b",
+    "xlstm_350m",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

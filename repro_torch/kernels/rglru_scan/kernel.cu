@@ -45,7 +45,14 @@
 //     soon as pass 1 ends, and its inclusive carry (h at its end) once it
 //     has its carry-in.  It walks left composing aggregates until it finds
 //     an inclusive carry, so the waits never form a serial chain.  Chunk
-//     0's carry-in is h0 (or 0).
+//     0's carry-in is h0 (or 0).  Which words it finds depends on timing,
+//     and a carry composed over k > 1 aggregates rounds otherwise than the
+//     chain of inclusive carries, so h can differ in its last bits from
+//     one launch to the next.  With `chained` set (the wrapper sets it
+//     under torch.use_deterministic_algorithms) a chunk waits for its left
+//     neighbour's inclusive carry alone: carry(c) = A(c-1) * carry(c-1) +
+//     Bc(c-1), the same FMAs on every launch, for a serial chain of
+//     n_chunks hops.
 //   - Pass 2 runs the recurrence from the carry over the same shared-memory
 //     tile, writing h over the b tile, and one thread sends it out by TMA
 //     stores through a third tensor map (clipped at ragged edges); the
@@ -100,6 +107,7 @@ struct Params {
   long long S, W;
   int B, n_chunks, n_wtiles;
   unsigned n_blocks, epoch;
+  int chained;                 // 1: look back at inclusive carries only
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -265,7 +273,7 @@ rglru_scan_kernel(const __grid_constant__ Params p) {
   if (c == 0) {
     if (p.h0 != nullptr && col_ok) carry = p.h0[(long long)bb * p.W + col];
   } else {
-    if (!last) {
+    if (!last && !p.chained) {
       put(&p.agg_a[slot], A, p.epoch);
       put(&p.agg_b[slot], Bc, p.epoch);
     }
@@ -279,7 +287,8 @@ rglru_scan_kernel(const __grid_constant__ Params p) {
         carry = fmaf(PA, v, PB);
         break;
       }
-      if (get(&p.agg_a[j], p.epoch, ga) && get(&p.agg_b[j], p.epoch, gb)) {
+      if (!p.chained && get(&p.agg_a[j], p.epoch, ga)
+          && get(&p.agg_b[j], p.epoch, gb)) {
         PB = fmaf(PA, gb, PB);
         PA *= ga;
         j -= wp;
@@ -395,16 +404,17 @@ extern "C" long long rglru_scan_scratch_bytes(long long B, long long S,
 // [B, S, W]; h0: B*W f32 or null (zeros); h_last: B*W f32; scratch: at
 // least rglru_scan_scratch_bytes(B, S, W) bytes, zeroed before its first
 // launch and used by one stream; epoch: 1 <= epoch < 2^31, new on every
-// launch with this scratch.  TMA moves a, b and h when W % 4 == 0 and the
-// three bases are 16-byte aligned; 4-byte cp.async and stores from
-// registers otherwise.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a scratch, epoch or grid it cannot take.
+// launch with this scratch; chained: nonzero for the same bits on every
+// launch (see the look-back above).  TMA moves a, b and h when W % 4 == 0
+// and the three bases are 16-byte aligned; 4-byte cp.async and stores from
+// registers otherwise.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
+// scratch, epoch or grid it cannot take.
 extern "C" int rglru_scan_launch(const void* a, const void* b, const void* h0,
                                  void* h, void* h_last, long long B,
                                  long long S, long long W, void* scratch,
                                  long long scratch_bytes, unsigned epoch,
-                                 void* stream) {
+                                 int chained, void* stream) {
   if (B <= 0 || S <= 0 || W <= 0) return 0;
   const Layout l = layout(B, S, W);
   Params p = {};
@@ -430,6 +440,7 @@ extern "C" int rglru_scan_launch(const void* a, const void* b, const void* h0,
   p.B = (int)B;
   p.n_blocks = (unsigned)n_blocks;
   p.epoch = epoch;
+  p.chained = chained != 0;
   const bool tma = W % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0
                    && reinterpret_cast<uintptr_t>(b) % 16 == 0
                    && reinterpret_cast<uintptr_t>(h) % 16 == 0;

@@ -13,17 +13,16 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
 
     A log-depth doubling scan over time, the associative form of the JAX
     package's oracle: after the step of distance d, (a_t, b_t) composes the
-    2d steps that end at t (``h0`` is folded into b_0 first)."""
-    a = a.clone()
-    b = b.clone()
+    2d steps that end at t (``h0`` is folded into b_0 first).  Every step
+    makes new tensors and writes none it read, so autograd can run through
+    it (the yardstick of the kernel's gradient)."""
     if h0 is not None:
-        b[:, 0] += a[:, 0] * h0
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
     S = a.shape[1]
     d = 1
     while d < S:
-        # compose (a[t-d], b[t-d]) then (a[t], b[t]); the right-hand sides
-        # are evaluated before either tensor is written
-        b[:, d:], a[:, d:] = (a[:, d:] * b[:, :-d] + b[:, d:],
-                              a[:, d:] * a[:, :-d])
+        # compose (a[t-d], b[t-d]) then (a[t], b[t]) for t >= d
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return b, b[:, -1]

@@ -15,12 +15,14 @@ mesh flags are accepted and must stay at one device.
     python -m repro_torch.launch.serve --arch qwen3_4b
     python -m repro_torch.launch.serve --arch gemma2_2b
     python -m repro_torch.launch.serve --arch qwen2_vl_7b
+    python -m repro_torch.launch.serve --arch xlstm_350m
 
 qwen2-vl-7b's prefill takes the synthetic batch of its embeddings input
 (``embeds`` and M-RoPE ``positions``), as the reference's launcher gives
 it; decode then feeds the greedy tokens.  gemma2-2b's alternating
 local/global layers take the blocked plain path, not the kernel, as the
-reference's dispatch does.
+reference's dispatch does.  xlstm-350m carries an O(1) state (mLSTM matrix
+memories, sLSTM vectors) in place of a KV cache.
 """
 
 from __future__ import annotations

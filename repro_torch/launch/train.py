@@ -2,7 +2,10 @@
 ``launch/train.py``: the same flags and the same JSON lines (one per logged
 step, then a summary).  Runs on the CUDA card, in PyTorch's deterministic
 mode (so a restart continues bit for bit); ``--smoke --device cpu`` runs the
-reduced config on the CPU through the plain PyTorch versions.
+reduced config on the CPU through the plain PyTorch versions.  Every ported
+architecture trains: the decoder-only family (dense, MoE, VLM on
+embeddings), the RG-LRU hybrid (its scans through ``rglru_scan`` under
+autograd) and xLSTM.
 
 One process trains on one device.  Under ``torchrun`` (which sets
 ``WORLD_SIZE``, ``RANK`` and the rendezvous address) the state is sharded
@@ -12,6 +15,10 @@ processes, which must be the world size (``--production-mesh``: 16 x 16,
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 60 \\
         --batch 4 --seq 2048 --ckpt-dir /tmp/ck --ckpt-every 20
+    python -m repro_torch.launch.train --arch xlstm-350m --steps 20 \\
+        --batch 4 --seq 512 --ckpt-every 10
+    python -m repro_torch.launch.train --arch recurrentgemma_9b --smoke \\
+        --device cpu --steps 10 --batch 2 --seq 16
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch smollm-135m --smoke --device cpu --data-mesh 2
 """

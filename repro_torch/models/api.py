@@ -75,17 +75,20 @@ class TorchModelApi:
 
 def build_model(cfg: ModelConfig) -> TorchModelApi:
     """The decoder-only family (dense and MoE FFNs, and the VLM backbone on
-    embeddings input) and the RG-LRU hybrid (serving); the encoder-decoder
-    (whisper) and xLSTM families are not ported yet."""
+    embeddings input), the RG-LRU hybrid and the xLSTM family; the
+    encoder-decoder (whisper) family is not ported yet."""
     if cfg.recurrent == "rglru":
         from repro_torch.models import rglru
         return rglru.build(cfg)
+    if cfg.recurrent == "xlstm":
+        from repro_torch.models import xlstm
+        return xlstm.build(cfg)
     if (cfg.family not in ("dense", "moe", "vlm") or cfg.enc_dec
             or cfg.recurrent != "none"):
         raise NotImplementedError(
-            f"{cfg.arch}: the encoder-decoder (whisper) and xLSTM families "
-            f"are not ported; the decoder-only transformer (dense, MoE, "
-            f"VLM) and the RG-LRU hybrid are")
+            f"{cfg.arch}: the encoder-decoder (whisper) family is not "
+            f"ported; the decoder-only transformer (dense, MoE, VLM), the "
+            f"RG-LRU hybrid and xLSTM are")
     from repro_torch.models import transformer
     return transformer.build(cfg)
 

@@ -21,6 +21,23 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
+# ---------------------------------------------------------------- helpers
+def softplus(x):
+    # jax.nn.softplus is logaddexp(x, 0) everywhere; F.softplus switches to
+    # the identity above its threshold
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def unstack_layers(params, prefix: str) -> list[dict[str, torch.Tensor]]:
+    """Each layer's slices of the ``prefix/`` stack, keyed without the
+    prefix (one ``unbind`` per array, so the backward pass stacks the
+    layers' gradients once)."""
+    per_key = {k.split("/", 1)[1]: v.unbind(0) for k, v in params.items()
+               if k.startswith(prefix + "/")}
+    n = len(next(iter(per_key.values())))
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+
+
 # ------------------------------------------------------------------- norms
 def rms_norm(x, weight, eps: float = 1e-6):
     dtype = x.dtype

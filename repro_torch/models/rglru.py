@@ -1,37 +1,51 @@
-"""RecurrentGemma / Griffin family (serving half): RG-LRU recurrent blocks
-and local attention, pattern (recurrent, recurrent, local-attn) repeating —
-the counterpart of the JAX package's ``models/rglru.py``.
+"""RecurrentGemma / Griffin family: RG-LRU recurrent blocks and local
+attention, pattern (recurrent, recurrent, local-attn) repeating — the
+counterpart of the JAX package's ``models/rglru.py``.
 
 RG-LRU recurrence (Griffin eq. 1-4):
     r_t = sigmoid(W_a x_t);  i_t = sigmoid(W_x x_t)
     a_t = exp(-c * softplus(Lambda) * r_t)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
-The gates are PyTorch; the recurrence over a prompt goes through the
-hand-written ``rglru_scan`` kernel (its plain version on CPU tensors), and a
-decode step is one multiply-add in PyTorch, as in the reference.
-Attention layers use a sliding window, so their decode caches are
-window-sized ring buffers.
+The gates are PyTorch; the recurrence over a prompt or a training sequence
+goes through the hand-written ``rglru_scan`` kernel (its plain version on
+CPU tensors) under autograd (``lru_scan_vjp``, whose backward is the same
+kernel run backwards in time), and a decode step is one multiply-add in
+PyTorch, as in the reference.  Attention layers use a sliding window, so
+their decode caches are window-sized ring buffers.
 
 Parameters keep the reference's stacked ``[n, ...]`` layout (one stack for
 the recurrent layers, one for the attention layers) and its precision
-choices.  The training loss, ``forward_hidden`` and the mesh axes are not
-ported yet.
+choices.  Training checkpoints each (lru, lru, local) group under
+``cfg.remat``, as the reference's ``jax.checkpoint`` over its scanned
+groups; the recurrent layers past the last whole group run unchecked.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rglru_scan.ops import lru_scan
-from repro_torch.models.api import BatchSpec, ParamSpec, TorchModelApi
+from repro_torch.distrib.context import mesh_context, use_mesh_context
+from repro_torch.kernels.rglru_scan.ops import lru_scan_vjp
+from repro_torch.models.api import (
+    BatchSpec,
+    ParamSpec,
+    TorchModelApi,
+    token_batch_specs,
+)
 from repro_torch.models.layers import (
     apply_rope,
+    chunked_softmax_xent,
     decode_attention,
     flash_attention_xla,
     rms_norm,
     rope_angles,
+    softplus,
+    unstack_layers,
 )
 from repro_torch.models.transformer import _embed_scale
 
@@ -100,12 +114,6 @@ def _causal_conv(x, kernel, state=None):
     return out, new_state
 
 
-def _softplus(x):
-    # jax.nn.softplus is logaddexp(x, 0) everywhere; F.softplus switches to
-    # the identity above its threshold
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def _lru_gates(x, lp):
     # f32 products, as the reference's x.astype(F32) @ w.astype(F32); they
     # stay full f32 on the card while torch.backends.cuda.matmul.allow_tf32
@@ -113,7 +121,7 @@ def _lru_gates(x, lp):
     xf = x.float()
     r = torch.sigmoid(xf @ lp["w_a"].float())
     i = torch.sigmoid(xf @ lp["w_i"].float())
-    log_a = -C_CONST * _softplus(lp["lam"].float()) * r
+    log_a = -C_CONST * softplus(lp["lam"].float()) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * (i * xf)
@@ -122,9 +130,9 @@ def _lru_gates(x, lp):
 
 def _lru_scan(x, lp, h0=None):
     """x [B,S,W] -> (y [B,S,W] in x's dtype, h_last [B,W] f32), through the
-    ``rglru_scan`` kernel."""
+    ``rglru_scan`` kernel (under autograd)."""
     a, b = _lru_gates(x, lp)
-    h, h_last = lru_scan(a, b, None if h0 is None else h0.float())
+    h, h_last = lru_scan_vjp(a, b, None if h0 is None else h0.float())
     return h.to(x.dtype), h_last
 
 
@@ -170,6 +178,67 @@ def _attn_block(cfg: ModelConfig, x, lp, sin, cos):
                               block_q=cfg.attn_block_q,
                               block_k=cfg.attn_block_k)
     return x + out.reshape(B, S, Hq * hd) @ lp["wo"], (k, v)
+
+
+def _split_stacks(params, cfg: ModelConfig):
+    """``groups``, one (lru, lru, attn) triple of per-layer parameter dicts
+    per local-attention layer (the reference's ``[n_groups, 2, ...]``
+    recurrent body beside its attention stack), and ``tail``, the
+    recurrent layers past the last group."""
+    lru = unstack_layers(params, "lru")
+    attn = unstack_layers(params, "attn")
+    groups = [(lru[2 * g], lru[2 * g + 1], ap) for g, ap in enumerate(attn)]
+    return groups, lru[2 * len(attn):]
+
+
+# ------------------------------------------------------------------ train
+def forward_hidden(params, cfg: ModelConfig, x, sin, cos):
+    """All layers in the reference's order, x [B, S, D] -> final-normed
+    hidden [B, S, D].  Under autograd with ``cfg.remat`` each (lru, lru,
+    local) group is checkpointed, its activations (and its two scans)
+    recomputed in the backward pass; the tail layers are not."""
+    groups, tail = _split_stacks(params, cfg)
+    # a checkpointed span is recomputed on the autograd engine's thread (a
+    # card's own), which does not see this thread's context: each span
+    # installs the one its forward ran under
+    ctx = mesh_context()
+
+    def group(x, g):
+        lp0, lp1, ap = groups[g]
+        with use_mesh_context(ctx):
+            for lp in (lp0, lp1):
+                x, _ = _lru_block(x, lp)
+                x = _mlp(x, lp)
+            x, _ = _attn_block(cfg, x, ap, sin, cos)
+            return _mlp(x, ap)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for g in range(len(groups)):
+        x = (checkpoint(group, x, g, use_reentrant=False) if remat
+             else group(x, g))
+    for lp in tail:
+        x, _ = _lru_block(x, lp)
+        x = _mlp(x, lp)
+    return rms_norm(x, params["final_norm"])
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Mean next-token cross-entropy over the masked positions, through the
+    bf16 copy of the (tied) table, as the reference; metrics ``{}``.  The
+    gather is ``index_select``, whose backward on a card is deterministic
+    under ``torch.use_deterministic_algorithms``."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = torch.index_select(params["embed"], 0, tokens.reshape(-1).long())
+    x = _embed_scale(cfg, x.reshape(B, S, -1))
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=tokens.device)[None].expand(B, S)
+    sin, cos = rope_angles(pos, cfg.head_dim_, cfg.rope_theta)
+    hidden = forward_hidden(params, cfg, x, sin, cos)
+    total, count = chunked_softmax_xent(
+        hidden, params["embed"].to(torch.bfloat16).t(), batch["targets"],
+        batch["mask"], chunk=cfg.vocab_chunk or min(512, S))
+    return total / torch.clamp(count, min=1.0), {}
 
 
 def _logits(params, x):
@@ -294,4 +363,6 @@ def build(cfg: ModelConfig) -> TorchModelApi:
         decode_step=lambda params, cache, batch: decode_step(params, cfg,
                                                              cache, batch),
         cache_specs=lambda B, Smax: cache_specs(cfg, B, Smax),
+        loss=lambda params, batch: loss_fn(params, cfg, batch),
+        input_specs=functools.partial(token_batch_specs, cfg),
     )

@@ -211,6 +211,76 @@ def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):
         scan_ops.lru_scan(a, a.cpu())
 
 
+def _scan_grads(fn, a, b, h0, g, g_last):
+    """(h, h_last, da, db, dh0 or None) of ``fn`` on copies of a, b, h0 for
+    the upstream gradients g of h and g_last of h_last."""
+    ins = [t.clone().requires_grad_(True) for t in (a, b, h0)
+           if t is not None]
+    h, h_last = fn(ins[0], ins[1], ins[2] if h0 is not None else None)
+    grads = torch.autograd.grad((h, h_last), ins, (g, g_last))
+    dh0 = grads[2] if h0 is not None else None
+    return h.detach(), h_last.detach(), grads[0], grads[1], dh0
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+@pytest.mark.parametrize("B,S,W,with_h0", [
+    (4, 2048, 4096, True),      # the hybrid train path's shape
+    (2, 300, 1000, False),      # ragged S and W, h0 = None
+])
+def test_rglru_scan_vjp_grads_match_plain_path(cuda, B, S, W, with_h0,
+                                               deterministic):
+    """The autograd Function (kernel forward, kernel backward: one launch
+    each) against autograd through the plain version on the same card
+    tensors and upstream gradients: da, db, dh0 within the scan's f32
+    tolerance, 1e-5 + 1e-5 |plain|; in deterministic mode (the train
+    path's: chained carries) and in default mode (the decoupled
+    look-back)."""
+    a, b, h0 = _scan_inputs(cuda, B, S, W, with_h0, "model", S + W)
+    gen = torch.Generator(device=cuda).manual_seed(W)
+    g = torch.randn((B, S, W), generator=gen, device=cuda)
+    g_last = torch.randn((B, W), generator=gen, device=cuda)
+    scan_ops.launches = 0
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        got = _scan_grads(scan_ops.lru_scan_vjp, a, b, h0, g, g_last)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert scan_ops.launches == 2
+    want = _scan_grads(rglru_scan_ref, a, b, h0, g, g_last)
+    for x, y in zip(got, want):
+        if y is None:
+            assert x is None
+            continue
+        assert bool(torch.isfinite(x).all())
+        assert bool(((x - y).abs() <= 1e-5 + 1e-5 * y.abs()).all())
+
+
+def test_rglru_scan_repeats_bit_for_bit_in_deterministic_mode(cuda):
+    """Under ``torch.use_deterministic_algorithms`` the kernel chains its
+    chunks' carries: ten forward launches at the train path's shape (32
+    chunks) and two backward runs of the Function give the same bits."""
+    a, b, h0 = _scan_inputs(cuda, 4, 2048, 4096, True, "model", 7)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    g = torch.randn(a.shape, generator=gen, device=cuda)
+    g_last = torch.randn(h0.shape, generator=gen, device=cuda)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        first = scan_ops.lru_scan(a, b, h0)[0]
+        same = [torch.equal(scan_ops.lru_scan(a, b, h0)[0], first)
+                for _ in range(9)]
+        runs = [_scan_grads(scan_ops.lru_scan_vjp, a, b, h0, g, g_last)
+                for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert all(same)
+    _assert_scan_close(a, b, h0, first, first[:, -1])
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
 # ------------------------------------------------------------ train path
 @pytest.mark.parametrize("B,S", [(1, 512), (2, 1000), (4, 2048)])
 def test_flash_attention_vjp_grads_match_plain_path(cuda, B, S):

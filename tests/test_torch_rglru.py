@@ -324,7 +324,7 @@ def test_engine_refuses_caches_it_cannot_splice():
         TorchServeEngine(tapi, tparams, slots=2, max_seq=16)
 
 
-@pytest.mark.parametrize("arch", ["xlstm_350m", "whisper_base"])
+@pytest.mark.parametrize("arch", ["whisper_base"])
 def test_build_model_refuses_unported_families(arch):
     ref = dataclasses.asdict(get_smoke_config(arch))
     with pytest.raises(NotImplementedError):

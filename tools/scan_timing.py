@@ -15,8 +15,17 @@ time per call, L2 warm).  The shapes are recurrentgemma-9b's lru_width
 S 2048 (the same bytes as one long prompt) and B 1, S 512.  Beside each
 kernel time stands a bandwidth ruler on the same bytes,
 ``torch.add(a, b, out=h)`` (reads two f32 and writes one per element), and
-the bound: those bytes over the card's published HBM rate.  Prints one
-JSON line per ROOT, in the order given; needs one CUDA card.
+the bound: those bytes over the card's published HBM rate.
+
+Where ROOT has the scan's gradient (``lru_scan_vjp``), its backward is
+timed too at the hybrid train path's shape (B 4, S 2048, W 4096, with h0),
+in default and in deterministic mode: the whole backward, the operations it
+is made of one by one on [B, S, W] f32 (``torch.flip`` over time, the same
+reorder by ``index_select`` into a new tensor and into a buffer made
+before, the reversed scan, the product for da, and ``torch.empty_like``,
+which deterministic mode fills), and the device time of each CUDA kernel
+the backward launches, from ``torch.profiler``.  Prints one JSON
+line per ROOT, in the order given; needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ HERE = Path(__file__).resolve().parents[1]
 SEED = 0
 W = 4096
 SHAPES = [(4, 512), (1, 2048), (1, 512)]
+BACKWARD_SHAPE = (4, 2048)
+PROFILED_BACKWARDS = 5
 
 
 def _chip_smoke():
@@ -42,11 +53,96 @@ def _chip_smoke():
     return mod
 
 
+def _gates(torch, gen, B, S):
+    """a and b in the model's gate range (models/rglru.py::_lru_gates)."""
+    lam = torch.randn(W, generator=gen, device="cuda")
+    r = torch.rand((B, S, W), generator=gen, device="cuda")
+    a = torch.exp(-8.0 * torch.logaddexp(lam, torch.zeros_like(lam)) * r)
+    return a, torch.sqrt(1.0 - a * a) * torch.randn((B, S, W), generator=gen,
+                                                    device="cuda")
+
+
+def _kernel_ms(torch, prof, runs: int) -> list[dict]:
+    """Device ms per run of each CUDA kernel that ``prof`` recorded."""
+    rows = []
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) / 1e3 / runs
+        if e.device_type == torch.autograd.DeviceType.CUDA and ms > 0:
+            rows.append({"kernel": e.key[:120], "calls": e.count / runs,
+                         "ms": ms})
+    return sorted(rows, key=lambda r: -r["ms"])
+
+
+def time_backward(smoke, torch, scan_ops) -> dict:
+    """The scan's backward and its parts, in default and deterministic
+    mode, at BACKWARD_SHAPE."""
+    B, S = BACKWARD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    a, b = _gates(torch, gen, B, S)
+    h0, g_last = (torch.randn((B, W), generator=gen, device="cuda")
+                  for _ in range(2))
+    g = torch.randn((B, S, W), generator=gen, device="cuda")
+    ins = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    h, h_last = scan_ops.lru_scan_vjp(*ins)
+    hv = h.detach()
+
+    def backward():
+        return torch.autograd.grad((h, h_last), ins, (g, g_last),
+                                   retain_graph=True)
+
+    reverse = torch.arange(S - 1, -1, -1, device="cuda")
+    g_rev = g.flip(1)
+    lam = scan_ops.lru_scan(a, g_rev)[0]
+    buf, da = torch.empty_like(a), torch.empty_like(a)
+    parts = {
+        "flip": lambda: g.flip(1),
+        "index_select": lambda: torch.index_select(g, 1, reverse),
+        "index_select_into_buffer": lambda: torch.index_select(
+            g, 1, reverse, out=buf),
+        "reversed_scan": lambda: scan_ops.lru_scan(a, g_rev),
+        "product_da": lambda: torch.mul(lam[:, 1:], hv[:, :-1],
+                                        out=da[:, 1:]),
+        "empty_like": lambda: torch.empty_like(a),
+    }
+    was = torch.are_deterministic_algorithms_enabled()
+    out = {"shape": [B, S, W], "h0": True}
+    try:
+        for mode in (False, True):
+            torch.use_deterministic_algorithms(mode)
+            line = {"ms": smoke.time_ms(backward),
+                    "forward_ms": smoke.time_ms(
+                        lambda: scan_ops.lru_scan(a, b, h0)),
+                    "parts_ms": {k: smoke.time_ms(f)
+                                 for k, f in parts.items()}}
+            backward()
+            torch.cuda.synchronize()
+            try:
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(PROFILED_BACKWARDS):
+                        backward()
+                    torch.cuda.synchronize()
+                line["kernels"] = _kernel_ms(torch, prof, PROFILED_BACKWARDS)
+            except Exception as e:  # the timings above stand without it
+                line["kernels"] = f"profiler failed: {e!r}"
+            out["deterministic" if mode else "default"] = line
+    finally:
+        torch.use_deterministic_algorithms(was)
+    # read a, h, g, g_last and h0; write da, db and dh0
+    nbytes = 4 * (5 * B * S * W + 3 * B * W)
+    out.update(bytes_moved=nbytes,
+               bound_ms=nbytes / smoke.HBM_BYTES_PER_S * 1e3)
+    return out
+
+
 def time_root(root: Path) -> dict:
     sys.path.insert(0, str(root))
     import torch
 
     smoke = _chip_smoke()
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
     from repro_torch.kernels.rglru_scan.ops import lru_scan
 
     if not Path(sys.modules["repro_torch"].__file__).resolve().is_relative_to(
@@ -56,12 +152,7 @@ def time_root(root: Path) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     out = []
     for B, S in SHAPES:
-        # the model's gate range (models/rglru.py::_lru_gates)
-        lam = torch.randn(W, generator=gen, device="cuda")
-        r = torch.rand((B, S, W), generator=gen, device="cuda")
-        a = torch.exp(-8.0 * torch.logaddexp(lam, torch.zeros_like(lam)) * r)
-        b = torch.sqrt(1.0 - a * a) * torch.randn((B, S, W), generator=gen,
-                                                  device="cuda")
+        a, b = _gates(torch, gen, B, S)
         h0 = torch.randn((B, W), generator=gen, device="cuda")
         h = torch.empty_like(a)
         nbytes = 4 * (3 * B * S * W + 2 * B * W)
@@ -76,8 +167,11 @@ def time_root(root: Path) -> dict:
                     "ruler_add_ms": smoke.time_ms(
                         lambda: torch.add(a, b, out=h)),
                     **smoke.host_ms(kernel)})
-    return {"root": str(root), "card": torch.cuda.get_device_name(0),
+    line = {"root": str(root), "card": torch.cuda.get_device_name(0),
             "timings": out}
+    if hasattr(scan_ops, "lru_scan_vjp"):
+        line["backward"] = time_backward(smoke, torch, scan_ops)
+    return line
 
 
 def main(argv: list[str]) -> int:
