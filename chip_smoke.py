@@ -17,11 +17,16 @@ scan's gradient and xlstm-350m served, restarted and trained at full size.
   build    the hand-written kernels, compiled from this checkout's sources;
   kernels  each kernel against its plain PyTorch version on the card, at the
            main paths' shapes, with its time, bound, plain and library times;
-           and the scan's gradient (``lru_scan_vjp``: kernel forward, kernel
-           backward) against autograd through the plain version, with the
-           backward's time and bound, in deterministic mode (the train
-           path's) and in default mode, and the kernel's bits over repeated
-           launches in both modes, each launch held to the plain version;
+           the attention backward kernel against its plain version (from
+           the forward kernel's log-sum-exp, held to attention_lse_ref's),
+           its repeat bits, time, bound, plain and SDPA-backward times;
+           and the scan's gradient (``lru_scan_vjp``: kernel forward, the
+           kernel's reverse mode backward) against autograd through the
+           plain version, the reverse mode against ``lru_scan_bwd_ref``,
+           with the backward's time and bound, in deterministic mode (the
+           train path's) and in default mode, and the kernel's bits over
+           repeated launches in both modes and directions, each launch held
+           to the plain version;
   ckpt     a seeded full-width smollm-135m state on the card, saved as N=4
            ranks through the N-to-M engine (ckpt_pack packs each rank's
            chunks), restored N-to-M onto this one card, checked bit for bit;
@@ -38,9 +43,10 @@ scan's gradient and xlstm-350m served, restarted and trained at full size.
   hybrid_consistency  decode-step logits against one prefill of the prompt
            plus the tokens generated so far;
   train    full smollm-135m (B 4, S 2048) trained through the TorchTrainer in
-           deterministic mode, its attention forward on the flash kernel
-           under autograd (dq, dk, dv first checked against autograd
-           through the plain blocked path): run A takes 6 steps straight;
+           deterministic mode, its attention on the flash kernels under
+           autograd, forward and backward (dq, dk, dv first checked against
+           autograd through the plain blocked path): run A takes 6 steps
+           straight;
            run B saves every 2 steps through the async checkpointer
            (ckpt_pack packs each save) and is preempted at step 5; run C, a
            fresh trainer, restores the last committed step and runs to 6.
@@ -166,6 +172,18 @@ BF16_FLOPS = 989e12
 # in f32) and the output is rounded to bf16 (1 ulp = 2^-8 relative) — the
 # repo's own Pallas-vs-oracle bf16 tolerance
 ATTN_ATOL = ATTN_RTOL = 2e-2
+# the attention backward kernel against attention_bwd_ref (f32) on the same
+# (q, k, v, o, lse, dO): max |kernel - plain| <= ATTN_BWD_TOL * max |plain|
+# for each of dq, dk and dv.  P and dS are rounded to bf16 for the
+# tensor-core products and the gradients to bf16 (2^-8 relative), so an
+# element lands within about 1e-2 of its array's scale; the plain dq of a
+# [B, 2048] causal row is small (sums of 2,048 signed terms), so an
+# elementwise relative bound would hold it to its rounding noise
+ATTN_BWD_TOL = 2e-2
+# the forward's log-sum-exp (natural log) against attention_lse_ref's:
+# |kernel - plain| <= LSE_TOL (1 + |plain|); the two sum the same f32
+# products of the same bf16 inputs in another order, exp2 approximate
+LSE_TOL = 1e-3
 # |kernel-path prefill logits - naive-path logits| <= LOGITS_RTOL[arch] *
 # max |naive logits| in check_model_logits, per model.  Any two bf16
 # attention paths drift apart through the layers to the model's own bf16
@@ -230,10 +248,10 @@ HYBRID_TRAIN_STEPS, HYBRID_REPEAT_STEPS = 4, 2
 TRAIN_B, TRAIN_S = 4, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 2, 5
 TRAIN_LR, TRAIN_WARMUP = 3e-3, 2
-# |vjp grad - plain grad| <= VJP_ATOL + VJP_RTOL * |plain grad|: both are
-# autograd through the same blocked bf16 path on the same (q, k, v, dO), so
-# they should agree bit for bit under deterministic algorithms; the bound is
-# the attention kernel's bf16 tolerance
+# |vjp grad - plain grad| <= VJP_ATOL + VJP_RTOL * |plain grad|: the
+# Function's gradients (the backward kernel) against autograd through the
+# blocked bf16 path on the same (q, k, v, dO); the bound is the attention
+# kernel's bf16 tolerance
 VJP_ATOL = VJP_RTOL = 2e-2
 
 # the fem phase: a P4 Lagrange function on tri_mesh_fast(512, 512) (1.57 M
@@ -394,7 +412,8 @@ def phase_build() -> None:
 
     res = build.build_all()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "arning" in ln]
              for name, log in res["ptxas"].items()}
     # warpgroup MMA compiled in: HGMMA instructions in the flash library
     sass = subprocess.run(
@@ -628,6 +647,158 @@ def check_flash_attention(cfg) -> dict:
             "cases": results}
 
 
+def _sdpa_bwd(q, k, v, do, backend):
+    """(ms, how): ``time_ms`` of SDPA's backward alone (autograd through
+    one causal forward kept by ``retain_graph``), pinned to ``backend``, on
+    contiguous [B, H, S, hd] copies of the same tensors; ``how`` is
+    ``enable_gqa``, or ``expanded`` where the backend refuses GQA and k and
+    v are repeated G times (their gradients then summed by autograd);
+    (None, None) if the backend refuses both."""
+    from torch.nn.attention import sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    G = q.shape[2] // k.shape[2]
+    for how in ("enable_gqa", "expanded"):
+        ins = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+        try:
+            with sdpa_kernel(backend):
+                if how == "enable_gqa":
+                    out = sdpa(*ins, is_causal=True, enable_gqa=True)
+                else:
+                    out = sdpa(ins[0], ins[1].repeat_interleave(G, 1),
+                               ins[2].repeat_interleave(G, 1), is_causal=True)
+                return time_ms(lambda: torch.autograd.grad(
+                    out, ins, dot, retain_graph=True)), how
+        except RuntimeError:
+            continue
+    return None, None
+
+
+def check_flash_attention_bwd(cfg) -> dict:
+    """The attention backward kernel (``flash_attention_bwd``, from the
+    forward kernel's o and log-sum-exp) against ``attention_bwd_ref`` on
+    the same tensors, at smollm's train step, granite's, qwen3-4b's heads
+    (hd 128) and a ragged case with window, softcap and q_offset; the
+    forward's log-sum-exp against ``attention_lse_ref``'s; two launches
+    bit-equal; its time beside its bound, the plain version's and SDPA's
+    backward's, and the forward's time with and without the log-sum-exp."""
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                          attention_lse_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    qwen = get_config("qwen3_4b")
+    cases = [
+        # B, Sq, Sk, Hq, Hkv, hd, q_offset, window, softcap
+        (TRAIN_B, TRAIN_S, TRAIN_S, cfg.num_heads, cfg.num_kv_heads,
+         cfg.head_dim_, 0, 0, 0.0),                      # smollm's step
+        (MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_S, 24, 8, 64, 0, 0, 0.0),
+        (1, 512, 512, qwen.num_heads, qwen.num_kv_heads, qwen.head_dim_,
+         0, 0, 0.0),                                     # hd 128
+        (2, 333, 433, 9, 3, 64, 100, 256, 50.0),         # ragged, all three
+    ]
+    results, worst = [], 0.0
+    for B, Sq, Sk, Hq, Hkv, hd, qoff, win, cap in cases:
+        kw = dict(causal=True, window=win, softcap=cap, q_offset=qoff)
+        q, k, v, do = (rnd(B, Sq, Hq, hd), rnd(B, Sk, Hkv, hd),
+                       rnd(B, Sk, Hkv, hd), rnd(B, Sq, Hq, hd))
+        o, lse = attn_ops.flash_attention_fwd_lse(q, k, v, **kw)
+        got = attn_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        lse_nat = lse / attn_ops.LOG2E
+        want = attention_bwd_ref(*(t.float() for t in (q, k, v, o)),
+                                 lse_nat, do.float(), **kw)
+        lse_ref = attention_lse_ref(q, k, v, **kw)[1]
+        torch.cuda.synchronize()
+        line = {"shape": [B, Sq, Sk, Hq, Hkv, hd], "q_offset": qoff,
+                "window": win, "softcap": cap,
+                "lse_max_abs_err": float((lse_nat - lse_ref).abs().max()),
+                "lse_outside_tol": int(((lse_nat - lse_ref).abs()
+                                        > LSE_TOL * (1 + lse_ref.abs()))
+                                       .sum())}
+        bad = line["lse_outside_tol"]
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            err = float((x.float() - y).abs().max())
+            scale = float(y.abs().max())
+            line[name] = {"max_abs_err": err, "max_abs": scale}
+            worst = max(worst, err)
+            bad += err > ATTN_BWD_TOL * scale or not bool(
+                torch.isfinite(x).all())
+        results.append(line)
+        if bad:
+            raise AssertionError(f"flash_attention_bwd outside tolerance: "
+                                 f"{line}")
+        del q, k, v, do, o, lse, got, want, lse_ref
+
+    def timed(B, S, Hq, Hkv, hd, plain=False):
+        q, k, v, do = (rnd(B, S, Hq, hd), rnd(B, S, Hkv, hd),
+                       rnd(B, S, Hkv, hd), rnd(B, S, Hq, hd))
+        o, lse = attn_ops.flash_attention_fwd_lse(q, k, v)
+        runs = [attn_ops.flash_attention_bwd(q, k, v, o, lse, do)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(*runs))
+        del runs
+        sdpa = {b.name: _sdpa_bwd(q, k, v, do, b)
+                for b in (SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION)}
+        fastest = min((b for b in sdpa if sdpa[b][0] is not None),
+                      key=lambda b: sdpa[b][0], default=None)
+        # five products of 2 * hd operations a pair and head
+        ops = 10 * B * Hq * hd * _pairs(S, S, 0, True, 0)
+        # read q, k, v, o, dO and lse; write dq, dk and dv
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        t_ops, t_bytes = ops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        line = {"shape": [B, S, S, Hq, Hkv, hd],
+                "ms": time_ms(lambda: attn_ops.flash_attention_bwd(
+                    q, k, v, o, lse, do)),
+                "two_launches_bit_equal": repeat,
+                "forward_ms": time_ms(lambda: attn_ops.flash_attention(
+                    q, k, v)),
+                "forward_lse_ms": time_ms(
+                    lambda: attn_ops.flash_attention_fwd_lse(q, k, v)),
+                "library_ms": sdpa[fastest][0] if fastest else None,
+                "library": (f"SDPA backward ({fastest}, {sdpa[fastest][1]})"
+                            if fastest else None),
+                "sdpa_bwd_ms_by_backend": sdpa,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "flops": ops, "bytes_moved": nbytes}
+        line["tflops"] = ops / line["ms"] * 1e-9
+        if plain:
+            line["plain_ms"] = time_ms(lambda: attention_bwd_ref(
+                q, k, v, o, lse / attn_ops.LOG2E, do), iters=3)
+        if not repeat:
+            raise AssertionError(f"flash_attention_bwd: two launches differ "
+                                 f"at {line['shape']}")
+        return line
+
+    main = timed(TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads,
+                 cfg.head_dim_, plain=True)
+    granite = timed(MOE_TRAIN_B, MOE_TRAIN_S, 24, 8, 64)
+    hd128 = timed(1, 512, qwen.num_heads, qwen.num_kv_heads, qwen.head_dim_)
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "repro_torch/kernels/flash_attention/kernel.cu",
+            "replaces": "src/repro/kernels/flash_attention/ops.py:63 "
+                        "(_fa_bwd: jax.vjp of the XLA path, no Pallas "
+                        "kernel)",
+            "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "timed_at": main, "granite": granite, "hd128": hd128,
+            "tolerance": {"of_scale": ATTN_BWD_TOL, "lse": LSE_TOL},
+            "cases": results}
+
+
 def check_rglru_scan(W: int) -> dict:
     from repro_torch.kernels.rglru_scan.ops import lru_scan
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
@@ -745,14 +916,17 @@ def check_rglru_scan(W: int) -> dict:
 
 def check_rglru_scan_vjp(W: int) -> dict:
     """The scan's gradient, ``lru_scan_vjp`` (kernel forward, kernel
-    backward), against autograd through the plain version on the same card
-    tensors and upstream gradients, at the hybrid train path's shape (with
-    h0) and a ragged one, in deterministic mode (the train path's: chained
-    carries) and in default mode (the decoupled look-back); the kernel's
-    bits over repeated launches in both modes, each launch held to the
-    plain version; the backward's times."""
+    backward: the reverse mode, one launch), against autograd through the
+    plain version on the same card tensors and upstream gradients, at the
+    hybrid train path's shape (with h0) and a ragged one, in deterministic
+    mode (the train path's: chained carries) and in default mode (the
+    decoupled look-back); the reverse mode alone against
+    ``lru_scan_bwd_ref`` at the same shapes in both modes; the kernel's
+    bits over repeated launches in both modes and both directions, each
+    launch held to the plain version; the backward's times."""
     from repro_torch.kernels.rglru_scan import ops as scan_ops
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan.ref import (lru_scan_bwd_ref,
+                                                     rglru_scan_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
 
@@ -784,7 +958,7 @@ def check_rglru_scan_vjp(W: int) -> dict:
     shapes = ((HYBRID_TRAIN_B, HYBRID_TRAIN_S, W, True), (2, 300, 1000, False))
     inputs_of = {shape: inputs(*shape) for shape in shapes}
     was = torch.are_deterministic_algorithms_enabled()
-    cases, worst, repeats = [], 0.0, {}
+    cases, reverse_cases, worst, repeats = [], [], 0.0, {}
     try:
         for mode in (True, False):
             torch.use_deterministic_algorithms(mode)
@@ -810,12 +984,36 @@ def check_rglru_scan_vjp(W: int) -> dict:
                                          f"tolerance or not two launches: "
                                          f"{line}")
                 del got, want
+                # the reverse mode alone, on the plain forward's h
+                a, b, h0, g, g_last = x
+                h = rglru_scan_ref(a, b, h0)[0]
+                got = scan_ops.lru_scan_bwd(a, h, h0, g, g_last)
+                want = lru_scan_bwd_ref(a, h, h0, g, g_last)
+                torch.cuda.synchronize()
+                line = {"deterministic": mode, "shape": list(shape[:3]),
+                        "h0": shape[3]}
+                for name, u, v in zip(("da", "db", "dh0"), got, want):
+                    if v is None:
+                        continue
+                    bad, err = outside(u, v)
+                    line[name] = {"max_abs_err": err,
+                                  "max_abs": float(v.abs().max()),
+                                  "outside_tol": bad}
+                    worst = max(worst, err)
+                reverse_cases.append(line)
+                if any(line[n]["outside_tol"] for n in ("da", "db", "dh0")
+                       if n in line):
+                    raise AssertionError(f"rglru_scan's reverse mode outside "
+                                         f"tolerance: {line}")
+                del got, want, h
         # the train shape: in each mode, SCAN_REPEATS forward launches,
         # each held to the plain version; in deterministic mode (chained
         # carries) all bit-equal, and how often the decoupled look-back's
         # differ; then the times
         a, b, h0, g, g_last = inputs_of[shapes[0]]
         want = rglru_scan_ref(a, b, h0)[0]
+        want_db = lru_scan_bwd_ref(a, want, h0, g, g_last)[1]
+        reverse_repeats = {}
         for mode in (False, True):
             torch.use_deterministic_algorithms(mode)
             runs = [scan_ops.lru_scan(a, b, h0)[0]
@@ -828,6 +1026,22 @@ def check_rglru_scan_vjp(W: int) -> dict:
             repeats[mode] = sum(not torch.equal(h, runs[0])
                                 for h in runs[1:])
             del runs
+            runs = [scan_ops.lru_scan_bwd(a, want, h0, g, g_last)[1]
+                    for _ in range(SCAN_REPEATS)]
+            bad = [outside(db, want_db)[0] for db in runs]
+            if any(bad):
+                raise AssertionError(f"rglru_scan's repeated reverse "
+                                     f"launches (deterministic {mode}) "
+                                     f"outside tolerance: {bad}")
+            reverse_repeats[mode] = sum(not torch.equal(db, runs[0])
+                                        for db in runs[1:])
+            del runs
+        if reverse_repeats[True]:
+            raise AssertionError(f"rglru_scan's reverse mode in "
+                                 f"deterministic mode does not repeat: "
+                                 f"{reverse_repeats[True]} of "
+                                 f"{SCAN_REPEATS - 1} launches differ")
+        del want_db
         backward = graph(scan_ops.lru_scan_vjp, a, b, h0, g, g_last)
         runs = [backward() for _ in range(2)]
         if repeats[True] or not all(torch.equal(u, v)
@@ -836,12 +1050,18 @@ def check_rglru_scan_vjp(W: int) -> dict:
                                  f"repeat: {repeats[True]} of "
                                  f"{SCAN_REPEATS - 1} forward launches "
                                  f"differ, or the two backward runs do")
-        del runs, want
+        del runs
+
+        def reverse():
+            return scan_ops.lru_scan_bwd(a, want, h0, g, g_last)
+
         chained_ms = time_ms(lambda: scan_ops.lru_scan(a, b, h0))
         bwd_ms = time_ms(backward)
+        reverse_ms = time_ms(reverse)
         torch.use_deterministic_algorithms(False)
         forward_ms = time_ms(lambda: scan_ops.lru_scan(a, b, h0))
         decoupled_bwd_ms = time_ms(backward)
+        decoupled_reverse_ms = time_ms(reverse)
     finally:
         torch.use_deterministic_algorithms(was)
     del backward
@@ -853,7 +1073,12 @@ def check_rglru_scan_vjp(W: int) -> dict:
     nbytes = 4 * (5 * B * S * W + 3 * B * W)
     return {"shape": [B, S, W], "h0": True, "max_abs_err": worst,
             "tolerance": {"atol": SCAN_ATOL, "rtol": SCAN_RTOL},
-            "cases": cases, "repeats": SCAN_REPEATS,
+            "cases": cases, "reverse_cases": reverse_cases,
+            "repeats": SCAN_REPEATS,
+            "reverse_launches_differing_default": reverse_repeats[False],
+            "reverse_launches_differing_deterministic": reverse_repeats[True],
+            "reverse_ms": reverse_ms,
+            "reverse_ms_default_mode": decoupled_reverse_ms,
             "repeated_launches_within_tol": True,
             "forward_launches_differing_default": repeats[False],
             "forward_launches_differing_deterministic": repeats[True],
@@ -1146,10 +1371,11 @@ def decode_vs_prefill(api, params, tokens, kept, rtol: float) -> dict:
 
 # ------------------------------------------------------------ train path
 def check_flash_vjp(cfg, device) -> dict:
-    """dq, dk, dv of the kernel's autograd Function against autograd through
-    the plain blocked ``flash_attention_xla`` at the train path's shape, on
-    the same upstream gradient; and against autograd through the plain f32
-    attention (reported, not held: bf16 against f32)."""
+    """dq, dk, dv of the kernel's autograd Function (the forward and
+    backward kernels) against autograd through the plain blocked
+    ``flash_attention_xla`` at the train path's shape, on the same upstream
+    gradient; and against autograd through the plain f32 attention
+    (reported, not held: bf16 against f32)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.layers import flash_attention_xla
@@ -1240,18 +1466,21 @@ def kill_and_resume(api, B: int, S: int, store_dirs, device,
             init_state_fn=lambda: init_train_state(
                 api, opt, torch.Generator(device=device).manual_seed(SEED)))
 
-    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0}
+    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0,
+                "flash_attention_bwd": 0}
 
     def counted(run, steps_run, saves):
         """``run()`` with the counts at 0 just before and read just after;
         each kernel in ``per_step`` must have launched that many times a
         step run, ckpt_pack on every save."""
         pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        attn_ops.bwd_launches = 0
         per_save = []
         out = run(per_save)
         got = {"ckpt_pack": pack_ops.launches,
                "flash_attention": attn_ops.launches,
-               "rglru_scan": scan_ops.launches}
+               "rglru_scan": scan_ops.launches,
+               "flash_attention_bwd": attn_ops.bwd_launches}
         for k, n in got.items():
             launches[k] += n
         for k, n in per_step.items():
@@ -1357,8 +1586,9 @@ def kill_and_resume(api, B: int, S: int, store_dirs, device,
 
 def phase_train(cfg, device, store_dirs) -> tuple[dict, dict]:
     """smollm's A, B and C (``kill_and_resume``) at TRAIN_B, TRAIN_S after
-    the attention kernel's gradient check; the attention kernel must launch
-    twice a layer a step (remat re-runs each layer's forward).  Returns the
+    the attention kernel's gradient check; the attention forward kernel
+    must launch twice a layer a step (remat re-runs each layer's forward),
+    the backward kernel once.  Returns the
     line and the arrays the postprocess phase sweeps, by step."""
     from repro_torch.device import use_deterministic_algorithms
     from repro_torch.models.api import build_model
@@ -1368,7 +1598,8 @@ def phase_train(cfg, device, store_dirs) -> tuple[dict, dict]:
     vjp = check_flash_vjp(cfg, device)
     line, kept = kill_and_resume(
         api, TRAIN_B, TRAIN_S, store_dirs, device,
-        per_step={"flash_attention": 2 * cfg.num_layers}, keep=SWEEP_ARRAYS)
+        per_step={"flash_attention": 2 * cfg.num_layers,
+                  "flash_attention_bwd": cfg.num_layers}, keep=SWEEP_ARRAYS)
     return {"phase": "train", **line, "vjp_check": vjp}, kept
 
 
@@ -1642,7 +1873,7 @@ def phase_elastic(cfg, scratch: Path) -> tuple[dict, dict]:
 
     # ---- leg 2: M = 1 on the card, counts at 0 just before, read just after
     t0 = time.perf_counter()
-    pack_ops.launches = attn_ops.launches = 0
+    pack_ops.launches = attn_ops.launches = attn_ops.bwd_launches = 0
     init_distributed("cuda", rank=0, world_size=1,
                      timeout=ELASTIC_PG_TIMEOUT)
     try:
@@ -1652,13 +1883,16 @@ def phase_elastic(cfg, scratch: Path) -> tuple[dict, dict]:
     finally:
         torch.distributed.destroy_process_group()
     launches = {"flash_attention": attn_ops.launches,
+                "flash_attention_bwd": attn_ops.bwd_launches,
                 "ckpt_pack": pack_ops.launches}
     per_step = (2 if ecfg.remat else 1) * ecfg.num_layers
     steps_run = ELASTIC_STEPS - 2
     if launches["flash_attention"] != per_step * steps_run or \
-            not launches["ckpt_pack"]:
+            launches["flash_attention_bwd"] != ecfg.num_layers * steps_run \
+            or not launches["ckpt_pack"]:
         raise AssertionError(f"the card's leg launched {launches}: expected "
-                             f"{per_step * steps_run} flash_attention "
+                             f"{per_step * steps_run} flash_attention and "
+                             f"{ecfg.num_layers * steps_run} backward "
                              f"launches and ckpt_pack on its save")
     if committed() != [2, ELASTIC_STEPS] or not card["losses_finite"]:
         raise AssertionError(f"committed {committed()}, losses "
@@ -1885,12 +2119,14 @@ def moe_paths(device, store_dir: str) -> dict:
     cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"),
                               attention_impl="pallas")
     api = build_model(cfg)
-    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0}
+    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0,
+                "flash_attention_bwd": 0}
 
     def read():
         got = {"ckpt_pack": pack_ops.launches,
                "flash_attention": attn_ops.launches,
-               "rglru_scan": scan_ops.launches}
+               "rglru_scan": scan_ops.launches,
+               "flash_attention_bwd": attn_ops.bwd_launches}
         for k, n in got.items():
             launches[k] += n
         return got
@@ -1903,6 +2139,7 @@ def moe_paths(device, store_dir: str) -> dict:
         t_init = time.perf_counter() - t0
         # ---- moe_serve: counts at 0 just before, read just after
         pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        attn_ops.bwd_launches = 0
         moe.calls = 0
         serve, kept = phase_moe_serve(api, params, tokens, device)
         serve["kernel_launches"] = read()
@@ -1922,6 +2159,7 @@ def moe_paths(device, store_dir: str) -> dict:
         # ---- moe_state: counts at 0 just before, read just after
         t0 = time.perf_counter()
         pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        attn_ops.bwd_launches = 0
         state = phase_moe_state(api, params, kept, store_dir, NRANKS, device)
         state["kernel_launches"] = read()
         if not state["kernel_launches"]["ckpt_pack"]:
@@ -1936,6 +2174,7 @@ def moe_paths(device, store_dir: str) -> dict:
     t0 = time.perf_counter()
     tcfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
     pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+    attn_ops.bwd_launches = 0
     moe.calls = 0
     train = phase_moe_train(tcfg, device)
     train["layers_cut_from"] = cfg.num_layers
@@ -1943,12 +2182,15 @@ def moe_paths(device, store_dir: str) -> dict:
     train["moe_ffn_ep_calls"] = moe.calls
     # a remat span runs its layers again in the backward pass
     per_step = (2 if tcfg.remat else 1) * tcfg.num_layers
-    for what, n in (("flash_attention", train["kernel_launches"]
-                     ["flash_attention"]), ("moe_ffn_ep", moe.calls)):
-        if n != per_step * train["steps_run"]:
+    bwd = train["kernel_launches"]["flash_attention_bwd"]
+    for what, n, each in (
+            ("flash_attention", train["kernel_launches"]["flash_attention"],
+             per_step), ("moe_ffn_ep", moe.calls, per_step),
+            ("flash_attention_bwd", bwd, tcfg.num_layers)):
+        if n != each * train["steps_run"]:
             raise AssertionError(f"{what} ran {n} times in "
                                  f"{train['steps_run']} steps, not "
-                                 f"{per_step} a step")
+                                 f"{each} a step")
     train["phase_seconds"] = time.perf_counter() - t0
     emit(train)
     torch.cuda.empty_cache()
@@ -2111,15 +2353,18 @@ def dense_paths(device, store_dir: str) -> dict:
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models.api import build_model
 
-    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0}
+    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0,
+                "flash_attention_bwd": 0}
 
     def zero():
         pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        attn_ops.bwd_launches = 0
 
     def read():
         got = {"ckpt_pack": pack_ops.launches,
                "flash_attention": attn_ops.launches,
-               "rglru_scan": scan_ops.launches}
+               "rglru_scan": scan_ops.launches,
+               "flash_attention_bwd": attn_ops.bwd_launches}
         for k, n in got.items():
             launches[k] += n
         return got
@@ -2362,15 +2607,18 @@ def recurrent_paths(device, store_dirs) -> dict:
     from repro_torch.launch.serve import decode_steps, prompt_batch
     from repro_torch.models.api import build_model
 
-    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0}
+    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0,
+                "flash_attention_bwd": 0}
 
     def zero():
         pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        attn_ops.bwd_launches = 0
 
     def read():
         got = {"ckpt_pack": pack_ops.launches,
                "flash_attention": attn_ops.launches,
-               "rglru_scan": scan_ops.launches}
+               "rglru_scan": scan_ops.launches,
+               "flash_attention_bwd": attn_ops.bwd_launches}
         for k, n in got.items():
             launches[k] += n
         return got
@@ -2552,6 +2800,7 @@ def main(argv=None) -> int:
                        check_rglru_scan(hcfg.lru_width)]
         # autograd through the scan (outside inference mode)
         kernels[2]["backward"] = check_rglru_scan_vjp(hcfg.lru_width)
+        kernels.append(check_flash_attention_bwd(cfg))
         for entry in kernels:
             emit({"phase": "kernels", **entry})
         if "--kernels-only" in argv:
@@ -2596,7 +2845,12 @@ def main(argv=None) -> int:
                 "rglru_scan": hybrid["rglru_scan"]
                 + train["total_launches"]["rglru_scan"]
                 + family_launches["rglru_scan"]
-                + recurrent_launches["rglru_scan"]}
+                + recurrent_launches["rglru_scan"],
+                # the train paths: smollm's, the elastic card leg, granite's
+                "flash_attention_bwd":
+                train["total_launches"]["flash_attention_bwd"]
+                + elastic_launches["flash_attention_bwd"]
+                + moe_launches["flash_attention_bwd"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: e[k] for k in keys}
@@ -2623,6 +2877,7 @@ def earlier_paths(api, cfg, hapi, hcfg, params, layout, ownership, device,
     with torch.inference_mode():
         # ---- the smollm path: counts at 0 just before, read just after
         pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        attn_ops.bwd_launches = 0
         ckpt, restored = phase_ckpt(api, params, store_dir, NRANKS, device)
         requests = make_requests(cfg.vocab)
         serve, results = phase_serve(api, restored, requests, SLOTS, device)
@@ -2645,6 +2900,7 @@ def earlier_paths(api, cfg, hapi, hcfg, params, layout, ownership, device,
             torch.Generator(device=device).manual_seed(SEED))
         tokens = prompt_batch(hcfg, HYBRID_B, HYBRID_P, device)["tokens"]
         pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        attn_ops.bwd_launches = 0
         hserve, kept = phase_hybrid_serve(hapi, hparams, tokens, device)
         # one launch per RG-LRU layer of the one prefill
         n_lru = sum(k == "lru" for k in hcfg.layer_kinds())
@@ -2683,6 +2939,7 @@ def earlier_paths(api, cfg, hapi, hcfg, params, layout, ownership, device,
                 lambda: phase_postprocess(train_stores[1], kept,
                                           device)):
         pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        attn_ops.bwd_launches = 0
         t0 = time.perf_counter()
         line = run()
         line["phase_seconds"] = time.perf_counter() - t0

@@ -24,3 +24,16 @@ def use_deterministic_algorithms() -> None:
     which an operation without a deterministic implementation raises."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
+
+
+def empty_unfilled(shape, dtype, device) -> torch.Tensor:
+    """``torch.empty`` for a tensor that its caller writes whole (a kernel's
+    output).  Deterministic mode fills the memory of every new tensor
+    (``torch.utils.deterministic.fill_uninitialized_memory``), one more
+    full write that nothing reads: it is off for this allocation."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        return torch.empty(shape, dtype=dtype, device=device)
+    finally:
+        torch.utils.deterministic.fill_uninitialized_memory = fill

@@ -60,6 +60,20 @@
 //     128-byte line per step.  The thread that holds t = S - 1 also writes
 //     h_last from the register that gave h there.  (Stores from registers
 //     in the TMA route too were slower on the H100.)
+// Reverse mode (the scan's gradient, one launch; the reference's backward
+// is jax.vjp of its scan, no Pallas kernel).  With g the gradient reaching
+// h and g_last that of h_last, the gradient in h_t is l_{S-1} = g_{S-1} +
+// g_last, l_t = g_t + a_{t+1} l_{t+1}: the same recurrence run from S - 1
+// down to 0 with step t's coefficient a_{t+1}.  The same kernel walks the
+// chunks in reverse ticket order and each chunk's steps from its end: the
+// a tile is staged one step later (a box at t + 1; a_S, past the end,
+// reads as 0 and the last chunk puts 1 there, so g_last enters as the
+// carry-in of step S - 1 with coefficient 1), and a third tile holds h one
+// step earlier (h_{-1} reads as 0 and is h0 where given).  Pass 2 fuses the
+// epilogue: db_t = l_t over g and da_t = l_t h_{t-1} over a in shared
+// memory, out by TMA stores.  One launch reads a, g and h once and writes
+// da and db once: 5 * 4 * B*S*W bytes, the function's own traffic.  Its
+// three tiles (48 KB) leave four blocks an SM.
 // Look-back words.  Each published value is one 64-bit word, (epoch << 32)
 // | the float's bits, stored with st.relaxed.gpu and polled with
 // ld.relaxed.gpu: a 64-bit access is single-copy atomic, so a word whose
@@ -77,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #if CUDART_VERSION < 12050
 #error "rglru_scan needs CUDA 12.5+ (cudaGetDriverEntryPointByVersion)"
 #endif
@@ -92,12 +108,18 @@ constexpr uint32_t kBoxBytes = kBoxS * kCols * 4;
 constexpr unsigned kSpinLimit = 1u << 25;   // polls before a wait traps
 
 struct Params {
-  CUtensorMap ta, tb, th;      // (W, S, B) views of a, b and h (TMA route)
+  // (W, S, B) views (TMA route) of a, b and h; in reverse b is g, h is
+  // read, and da and db are written
+  CUtensorMap ta, tb, th, tda, tdb;
   const float* a;
-  const float* b;
-  const float* h0;             // null: zeros
-  float* h;
+  const float* b;              // reverse: g
+  const float* init;           // the first chunk's carry-in (h0, reverse:
+                               // g_last); null: zero
+  const float* h0;             // reverse: h_{-1} for da; null: zeros
+  float* h;                    // reverse: read, as h_{t-1}
   float* h_last;
+  float* da;                   // reverse
+  float* db;                   // reverse
   unsigned* counter;           // the ticket counter
   // [B][n_chunks][n_wtiles * 64] words (epoch << 32) | value bits: the
   // aggregate's A and Bc, and h at the chunk's end
@@ -192,11 +214,16 @@ __device__ __forceinline__ bool get(const unsigned long long* p,
   return (unsigned)(w >> 32) == epoch;
 }
 
-template <bool kTma>
+template <bool kTma, bool kRev>
 __global__ void __launch_bounds__(kThreads)
 rglru_scan_kernel(const __grid_constant__ Params p) {
-  __shared__ alignas(128) float sA[kL * kCols];
-  __shared__ alignas(128) float sB[kL * kCols];
+  // the tiles, 128-byte aligned: a (reverse: a one step later), b (reverse:
+  // g), and in reverse h one step earlier
+  extern __shared__ unsigned char dyn[];
+  float* const sA = reinterpret_cast<float*>(
+      dyn + ((128u - (smem_u32(dyn) & 127u)) & 127u));
+  float* const sB = sA + kL * kCols;
+  float* const sH = sB + kL * kCols;
   __shared__ alignas(8) uint64_t bars[kBoxes];
   __shared__ unsigned s_ticket;
 
@@ -212,11 +239,13 @@ rglru_scan_kernel(const __grid_constant__ Params p) {
   }
   __syncthreads();
 
-  // logical tile, chunk-major: every block of chunk c - 1 drew its ticket
-  // before any block of chunk c
+  // logical tile, in the scan's order of chunks: every block of the chunk
+  // before c (in time forward, after it in reverse) drew its ticket before
+  // any block of chunk c
   const unsigned ticket = s_ticket;
   const unsigned per_chunk = (unsigned)p.B * (unsigned)p.n_wtiles;
-  const int c = (int)(ticket / per_chunk);
+  const int order = (int)(ticket / per_chunk);
+  const int c = kRev ? p.n_chunks - 1 - order : order;
   const int rem = (int)(ticket % per_chunk);
   const int bb = rem / p.n_wtiles;
   const int wt = rem % p.n_wtiles;
@@ -228,11 +257,15 @@ rglru_scan_kernel(const __grid_constant__ Params p) {
     if (tid == 0) {
       for (int i = 0; i < kBoxes; ++i) {
         const uint32_t bar = smem_u32(&bars[i]);
-        mbar_expect_tx(bar, 2 * kBoxBytes);
+        const int ts = t0 + i * kBoxS;
+        mbar_expect_tx(bar, (kRev ? 3 : 2) * kBoxBytes);
         tma_load(smem_u32(sA + i * kBoxS * kCols), &p.ta, bar, wt * kCols,
-                 t0 + i * kBoxS, bb);
+                 kRev ? ts + 1 : ts, bb);
         tma_load(smem_u32(sB + i * kBoxS * kCols), &p.tb, bar, wt * kCols,
-                 t0 + i * kBoxS, bb);
+                 ts, bb);
+        if (kRev)
+          tma_load(smem_u32(sH + i * kBoxS * kCols), &p.th, bar, wt * kCols,
+                   ts - 1, bb);
       }
     }
   } else {
@@ -241,23 +274,46 @@ rglru_scan_kernel(const __grid_constant__ Params p) {
 #pragma unroll 4
       for (int r = 0; r < kBoxS; ++r) {
         const int t = t0 + i * kBoxS + r;
+        const int ta = kRev ? t + 1 : t;
         const bool ok = col_ok && t < p.S;
+        const bool ok_a = col_ok && ta < p.S;
         const long long off = ok ? base + (long long)t * p.W : 0;
+        const long long off_a = ok_a ? base + (long long)ta * p.W : 0;
         const int s = (i * kBoxS + r) * kCols + tid;
-        cp_async4(smem_u32(sA + s), p.a + off, ok ? 4u : 0u);
+        cp_async4(smem_u32(sA + s), p.a + off_a, ok_a ? 4u : 0u);
         cp_async4(smem_u32(sB + s), p.b + off, ok ? 4u : 0u);
+        if (kRev) {
+          const bool ok_h = col_ok && t >= 1 && t - 1 < p.S;
+          const long long off_h =
+              ok_h ? base + (long long)(t - 1) * p.W : 0;
+          cp_async4(smem_u32(sH + s), p.h + off_h, ok_h ? 4u : 0u);
+        }
       }
       cp_async_arrive(smem_u32(&bars[i]));
     }
   }
 
-  // ---- pass 1: the chunk's aggregate of this column, box by box
+  const bool first = kRev ? c == p.n_chunks - 1 : c == 0;
+  const bool last = kRev ? c == 0 : c == p.n_chunks - 1;
+  const int t_end = (int)min((long long)kL, p.S - t0);   // valid steps
+
+  // ---- pass 1: the chunk's aggregate of this column, box by box, in the
+  // scan's direction
   float A = 1.0f, Bc = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kBoxes; ++i) {
+  for (int k = 0; k < kBoxes; ++k) {
+    const int i = kRev ? kBoxes - 1 - k : k;
     mbar_wait(smem_u32(&bars[i]), 0);
+    if (kRev && first) {
+      // the carry (h_last's gradient) enters step S - 1 with coefficient
+      // 1, where a_S lies past the end (read as 0); the steps past S carry
+      // it through unchanged (their g reads as 0)
+      for (int r = 0; r < kBoxS; ++r)
+        if (i * kBoxS + r >= t_end - 1) sA[(i * kBoxS + r) * kCols + tid] = 1.0f;
+    }
 #pragma unroll
-    for (int r = 0; r < kBoxS; ++r) {
+    for (int q = 0; q < kBoxS; ++q) {
+      const int r = kRev ? kBoxS - 1 - q : q;
       const int s = (i * kBoxS + r) * kCols + tid;
       const float at = sA[s];
       Bc = fmaf(at, Bc, sB[s]);
@@ -266,22 +322,22 @@ rglru_scan_kernel(const __grid_constant__ Params p) {
   }
 
   // ---- carry-in by decoupled look-back, each thread for its column
-  const bool last = c == p.n_chunks - 1;
   const long long wp = (long long)p.n_wtiles * kCols;     // padded width
+  const long long step = kRev ? wp : -wp;                 // toward the start
   const long long slot = ((long long)bb * p.n_chunks + c) * wp + col;
   float carry = 0.0f;
-  if (c == 0) {
-    if (p.h0 != nullptr && col_ok) carry = p.h0[(long long)bb * p.W + col];
+  if (first) {
+    if (p.init != nullptr && col_ok) carry = p.init[(long long)bb * p.W + col];
   } else {
     if (!last && !p.chained) {
       put(&p.agg_a[slot], A, p.epoch);
       put(&p.agg_b[slot], Bc, p.epoch);
     }
-    // compose the aggregates of chunks j + 1 .. c - 1: h_end(c - 1) =
-    // PA * h_end(j) + PB
+    // compose the aggregates of the chunks between j and c: the carry is
+    // PA * (j's inclusive carry) + PB
     float PA = 1.0f, PB = 0.0f;
     unsigned polls = 0;
-    for (long long j = slot - wp;;) {
+    for (long long j = slot + step;;) {
       float v, ga, gb;
       if (get(&p.incl[j], p.epoch, v)) {
         carry = fmaf(PA, v, PB);
@@ -291,7 +347,7 @@ rglru_scan_kernel(const __grid_constant__ Params p) {
           && get(&p.agg_b[j], p.epoch, gb)) {
         PB = fmaf(PA, gb, PB);
         PA *= ga;
-        j -= wp;
+        j += step;
         continue;
       }
       if (++polls == kSpinLimit) __trap();
@@ -300,9 +356,51 @@ rglru_scan_kernel(const __grid_constant__ Params p) {
   }
   if (!last) put(&p.incl[slot], fmaf(A, carry, Bc), p.epoch);
 
+  if (kRev) {
+    // ---- pass 2 in reverse: l_t = g_t + a_{t+1} l_{t+1} from the carry,
+    // then db_t = l_t and da_t = l_t h_{t-1} (h_{-1} = h0, or 0)
+    if (c == 0 && p.h0 != nullptr && col_ok)
+      sH[tid] = p.h0[(long long)bb * p.W + col];
+    float l = carry;
+    if (kTma) {
+      // db over g and da over a in shared memory, then out by TMA stores
+#pragma unroll
+      for (int s = kL - 1; s >= 0; --s) {
+        const int e = s * kCols + tid;
+        l = fmaf(sA[e], l, sB[e]);
+        sA[e] = l * sH[e];
+        sB[e] = l;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (tid == 0) {
+        for (int i = 0; i < kBoxes && i * kBoxS < t_end; ++i) {
+          tma_store(&p.tdb, smem_u32(sB + i * kBoxS * kCols), wt * kCols,
+                    t0 + i * kBoxS, bb);
+          tma_store(&p.tda, smem_u32(sA + i * kBoxS * kCols), wt * kCols,
+                    t0 + i * kBoxS, bb);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+    } else {
+      const long long row = (long long)bb * p.S;
+#pragma unroll
+      for (int s = kL - 1; s >= 0; --s) {
+        const int e = s * kCols + tid;
+        l = fmaf(sA[e], l, sB[e]);
+        if (col_ok && s < t_end) {
+          const long long at = (row + t0 + s) * p.W + col;
+          p.db[at] = l;
+          p.da[at] = l * sH[e];
+        }
+      }
+    }
+    return;
+  }
+
   // ---- pass 2: the recurrence from the carry, h stored per step
   const long long row = (long long)bb * p.S;
-  const int t_end = (int)min((long long)kL, p.S - t0);   // valid steps
   float hv = carry;
   if (kTma) {
     // h over b in shared memory, then out by TMA stores
@@ -374,6 +472,17 @@ int make_map(CUtensorMap* map, const void* ptr, long long B, long long S,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// cuTensorMapEncodeTiled is a driver call and needs a current context: a
+// thread that has made no runtime call yet (autograd's backward thread,
+// say) has none until cudaSetDevice makes the device's primary context
+// current there
+int bind_context() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  return (int)e;
+}
+
 struct Layout {
   long long agg_a, agg_b, incl, bytes;   // byte offsets and total
 };
@@ -389,6 +498,64 @@ Layout layout(long long B, long long S, long long W) {
   l.incl = l.agg_b + round_up(words * 8);
   l.bytes = l.incl + round_up(words * 8);
   return l;
+}
+
+// The scratch and grid of a launch at (B, S, W) into p; false if it cannot
+// take them
+bool setup(Params& p, long long B, long long S, long long W, void* scratch,
+           long long scratch_bytes, unsigned epoch, int chained,
+           long long& n_blocks) {
+  const Layout l = layout(B, S, W);
+  p.n_chunks = (int)((S + kL - 1) / kL);
+  p.n_wtiles = (int)((W + kCols - 1) / kCols);
+  n_blocks = (long long)p.n_chunks * B * p.n_wtiles;
+  if (scratch == nullptr || scratch_bytes < l.bytes || epoch == 0
+      || epoch >= (1u << 31) || n_blocks >= (1ll << 31) || S >= (1ll << 31)
+      || W >= (1ll << 31) || B >= (1ll << 31))
+    return false;
+  char* s = static_cast<char*>(scratch);
+  p.counter = reinterpret_cast<unsigned*>(s);
+  p.agg_a = reinterpret_cast<unsigned long long*>(s + l.agg_a);
+  p.agg_b = reinterpret_cast<unsigned long long*>(s + l.agg_b);
+  p.incl = reinterpret_cast<unsigned long long*>(s + l.incl);
+  p.S = S;
+  p.W = W;
+  p.B = (int)B;
+  p.n_blocks = (unsigned)n_blocks;
+  p.epoch = epoch;
+  p.chained = chained != 0;
+  return true;
+}
+
+bool aligned16(const void* x) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+// the tiles' dynamic shared memory (and the slack that aligns them) in
+// each mode; the reverse's 48 KB take the opt-in, once per card and kernel
+constexpr size_t kSmemFwd = 2 * kL * kCols * 4 + 128;
+constexpr size_t kSmemRev = 3 * kL * kCols * 4 + 128;
+constexpr int kMaxDevices = 64;
+
+template <bool kTma, bool kRev>
+int launch(const Params& p, long long n_blocks, cudaStream_t st) {
+  auto kernel = rglru_scan_kernel<kTma, kRev>;
+  const size_t smem = kRev ? kSmemRev : kSmemFwd;
+  if (kRev) {
+    static std::atomic<bool> raised[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!raised[dev]) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      raised[dev] = true;
+    }
+  }
+  kernel<<<(unsigned)n_blocks, kThreads, smem, st>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -416,43 +583,64 @@ extern "C" int rglru_scan_launch(const void* a, const void* b, const void* h0,
                                  long long scratch_bytes, unsigned epoch,
                                  int chained, void* stream) {
   if (B <= 0 || S <= 0 || W <= 0) return 0;
-  const Layout l = layout(B, S, W);
   Params p = {};
-  p.n_chunks = (int)((S + kL - 1) / kL);
-  p.n_wtiles = (int)((W + kCols - 1) / kCols);
-  const long long n_blocks = (long long)p.n_chunks * B * p.n_wtiles;
-  if (scratch == nullptr || scratch_bytes < l.bytes || epoch == 0
-      || epoch >= (1u << 31) || n_blocks >= (1ll << 31) || S >= (1ll << 31)
-      || W >= (1ll << 31) || B >= (1ll << 31))
+  long long n_blocks;
+  if (!setup(p, B, S, W, scratch, scratch_bytes, epoch, chained, n_blocks))
     return (int)cudaErrorInvalidValue;
   p.a = static_cast<const float*>(a);
   p.b = static_cast<const float*>(b);
-  p.h0 = static_cast<const float*>(h0);
+  p.init = static_cast<const float*>(h0);
   p.h = static_cast<float*>(h);
   p.h_last = static_cast<float*>(h_last);
-  char* s = static_cast<char*>(scratch);
-  p.counter = reinterpret_cast<unsigned*>(s);
-  p.agg_a = reinterpret_cast<unsigned long long*>(s + l.agg_a);
-  p.agg_b = reinterpret_cast<unsigned long long*>(s + l.agg_b);
-  p.incl = reinterpret_cast<unsigned long long*>(s + l.incl);
-  p.S = S;
-  p.W = W;
-  p.B = (int)B;
-  p.n_blocks = (unsigned)n_blocks;
-  p.epoch = epoch;
-  p.chained = chained != 0;
-  const bool tma = W % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0
-                   && reinterpret_cast<uintptr_t>(b) % 16 == 0
-                   && reinterpret_cast<uintptr_t>(h) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tma) {
-    int err = make_map(&p.ta, a, B, S, W);
+  if (W % 4 == 0 && aligned16(a) && aligned16(b) && aligned16(h)) {
+    int err = bind_context();
+    if (!err) err = make_map(&p.ta, a, B, S, W);
     if (!err) err = make_map(&p.tb, b, B, S, W);
     if (!err) err = make_map(&p.th, h, B, S, W);
     if (err) return err;
-    rglru_scan_kernel<true><<<(unsigned)n_blocks, kThreads, 0, st>>>(p);
-  } else {
-    rglru_scan_kernel<false><<<(unsigned)n_blocks, kThreads, 0, st>>>(p);
+    return launch<true, false>(p, n_blocks, st);
   }
-  return (int)cudaGetLastError();
+  return launch<false, false>(p, n_blocks, st);
+}
+
+// The reverse mode: the gradient of the scan that gave h from (a, b, h0),
+// in one launch.  g: the gradient reaching h, B*S*W; g_last: that of
+// h_last, B*W or null (zeros); h: the forward's output; h0: its h0 or null.
+// With l_{S-1} = g_{S-1} + g_last and l_t = g_t + a_{t+1} l_{t+1}, writes
+// db = l and da_t = l_t h_{t-1} (h_{-1} = h0, or 0), both B*S*W.  Scratch,
+// epoch, chained and the return as for rglru_scan_launch; TMA moves a, g,
+// h, da and db when W % 4 == 0 and the five bases are 16-byte aligned.
+extern "C" int rglru_scan_bwd_launch(const void* a, const void* g,
+                                     const void* g_last, const void* h,
+                                     const void* h0, void* da, void* db,
+                                     long long B, long long S, long long W,
+                                     void* scratch, long long scratch_bytes,
+                                     unsigned epoch, int chained,
+                                     void* stream) {
+  if (B <= 0 || S <= 0 || W <= 0) return 0;
+  Params p = {};
+  long long n_blocks;
+  if (!setup(p, B, S, W, scratch, scratch_bytes, epoch, chained, n_blocks))
+    return (int)cudaErrorInvalidValue;
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(g);
+  p.init = static_cast<const float*>(g_last);
+  p.h = const_cast<float*>(static_cast<const float*>(h));
+  p.h0 = static_cast<const float*>(h0);
+  p.da = static_cast<float*>(da);
+  p.db = static_cast<float*>(db);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W % 4 == 0 && aligned16(a) && aligned16(g) && aligned16(h)
+      && aligned16(da) && aligned16(db)) {
+    int err = bind_context();
+    if (!err) err = make_map(&p.ta, a, B, S, W);
+    if (!err) err = make_map(&p.tb, g, B, S, W);
+    if (!err) err = make_map(&p.th, h, B, S, W);
+    if (!err) err = make_map(&p.tda, da, B, S, W);
+    if (!err) err = make_map(&p.tdb, db, B, S, W);
+    if (err) return err;
+    return launch<true, true>(p, n_blocks, st);
+  }
+  return launch<false, true>(p, n_blocks, st);
 }

@@ -6,11 +6,12 @@ the hand-written kernel (``kernel.cu``) or raises; there is no fallback.
 Under ``torch.use_deterministic_algorithms`` the kernel chains its chunks'
 carries, so a launch repeats bit for bit (see ``kernel.cu``), and the
 outputs that are written whole are allocated without that mode's fill of
-new memory (``_empty``).
+new memory (``repro_torch.device.empty_unfilled``).
 
-``lru_scan_vjp`` is ``lru_scan`` under autograd: its backward is the same
-scan run once more, backwards in time (see ``_LruScan``), so both passes
-take the kernel on the card and the plain version on the CPU.
+``lru_scan_vjp`` is ``lru_scan`` under autograd: its backward,
+``lru_scan_bwd``, is the same recurrence backwards in time, the kernel's
+reverse mode in one launch on the card (it reads a, g and h once and
+writes da and db once) and the plain reversed loop on the CPU.
 
 The kernel chains its S-chunks by a decoupled look-back through scratch
 that this module keeps, one zeroed buffer per (card, stream), grown as
@@ -25,8 +26,10 @@ import ctypes
 
 import torch
 
+from repro_torch.device import empty_unfilled
 from repro_torch.kernels import build
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (lru_scan_bwd_ref,
+                                                 rglru_scan_ref)
 
 #: launches of the CUDA kernel since the count was last reset
 launches = 0
@@ -51,7 +54,12 @@ def _kernel():
                        + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
                           ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fns = size, fn
+        bwd = lib.rglru_scan_bwd_launch
+        bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3
+                        + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
+                           ctypes.c_int, ctypes.c_void_p])
+        bwd.restype = ctypes.c_int
+        _fns = size, fn, bwd
     return _fns
 
 
@@ -64,19 +72,6 @@ def _scratch_for(nbytes: int, device: torch.device, stream: int):
         _scratch[key] = entry
     entry[1] += 1
     return entry[0], entry[1]
-
-
-def _empty(*shape: int, device: torch.device) -> torch.Tensor:
-    """An f32 tensor that its caller writes whole.  Deterministic mode fills
-    the memory of every ``torch.empty`` (``torch.utils.deterministic.
-    fill_uninitialized_memory``), one more full write of each output that
-    nothing reads: it is off for this allocation."""
-    fill = torch.utils.deterministic.fill_uninitialized_memory
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    try:
-        return torch.empty(shape, dtype=torch.float32, device=device)
-    finally:
-        torch.utils.deterministic.fill_uninitialized_memory = fill
 
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
@@ -104,12 +99,12 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in ins):
         raise ValueError("rglru_scan: the kernel takes contiguous float32 "
                          "a, b and h0")
-    h = _empty(B, S, W, device=a.device)
-    h_last = _empty(B, W, device=a.device)
+    h = empty_unfilled((B, S, W), torch.float32, a.device)
+    h_last = empty_unfilled((B, W), torch.float32, a.device)
     if h.numel() == 0:
         return h, h_last
     with torch.cuda.device(a.device):
-        size, fn = _kernel()
+        size, fn, _ = _kernel()
         stream = torch.cuda.current_stream().cuda_stream
         scratch, epoch = _scratch_for(size(B, S, W), a.device, stream)
         err = fn(a.data_ptr(), b.data_ptr(),
@@ -123,24 +118,52 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
     return h, h_last
 
 
-def _reorder(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """x [B, S, W] with its time steps taken in ``index``'s order, as a
-    contiguous copy (a gather: torch.flip's output would be filled first
-    in deterministic mode)."""
-    return torch.index_select(x, 1, index,
-                              out=_empty(*x.shape, device=x.device))
+def lru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor | None,
+                 g: torch.Tensor, g_last: torch.Tensor | None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The gradient of ``lru_scan`` (see ``ref.py::lru_scan_bwd_ref``):
+    a, h (its output) and g (the gradient reaching h) [B, S, W] f32; h0
+    and g_last [B, W] f32 or None.  Returns (da, db, dh0)."""
+    if a.dim() != 3 or a.shape[1] == 0 or any(
+            tuple(t.shape) != tuple(a.shape) for t in (h, g)):
+        raise ValueError(f"rglru_scan_bwd: a, h and g must be one [B, S, W] "
+                         f"shape with S > 0, got {tuple(a.shape)}, "
+                         f"{tuple(h.shape)} and {tuple(g.shape)}")
+    B, S, W = a.shape
+    rows = [t for t in (h0, g_last) if t is not None]
+    if any(tuple(t.shape) != (B, W) for t in rows):
+        raise ValueError(f"rglru_scan_bwd: h0 and g_last must be {(B, W)}")
+    ins = [a, h, g] + rows
+    if any(t.device != a.device for t in ins):
+        raise ValueError("rglru_scan_bwd: every input must share one device")
+    if a.device.type == "cpu":
+        return lru_scan_bwd_ref(a, h, h0, g, g_last)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan_bwd: no kernel for device {a.device}")
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in ins):
+        raise ValueError("rglru_scan_bwd: the kernel takes contiguous "
+                         "float32 inputs")
+    da = empty_unfilled((B, S, W), torch.float32, a.device)
+    db = empty_unfilled((B, S, W), torch.float32, a.device)
+    with torch.cuda.device(a.device):
+        size, _, fn = _kernel()
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch, epoch = _scratch_for(size(B, S, W), a.device, stream)
+        err = fn(a.data_ptr(), g.data_ptr(),
+                 None if g_last is None else g_last.data_ptr(),
+                 h.data_ptr(), None if h0 is None else h0.data_ptr(),
+                 da.data_ptr(), db.data_ptr(), B, S, W,
+                 scratch.data_ptr(), scratch.numel(), epoch,
+                 int(torch.are_deterministic_algorithms_enabled()), stream)
+    global launches
+    launches += 1
+    build.check(err, "rglru_scan_bwd")
+    return da, db, None if h0 is None else a[:, 0] * db[:, 0]
 
 
 class _LruScan(torch.autograd.Function):
-    """h_t = a_t h_{t-1} + b_t with its gradient.  With g_t the gradient
-    reaching h_t (plus that of h_last at t = S), the gradient of the loss
-    in h_t is  l_S = g_S,  l_t = g_t + a_{t+1} l_{t+1}:  the same
-    recurrence backwards in time, with a shifted one step.  So the
-    backward scans the time-reversed g with the reversed, shifted a
-    (contiguous copies, as the kernel takes) through ``lru_scan``, then
-    db_t = l_t, da_t = l_t h_{t-1} (h_0 = h0, or 0) and dh0 = a_1 l_1.
-    The reversed scan starts from zero, so its first coefficient (a_{S+1})
-    multiplies 0 and any finite value serves: the reorder repeats a_S."""
+    """h_t = a_t h_{t-1} + b_t with its gradient: ``lru_scan`` forward,
+    ``lru_scan_bwd`` backward (one kernel launch each on the card)."""
 
     @staticmethod
     def forward(ctx, a, b, h0):
@@ -151,22 +174,8 @@ class _LruScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, g_last):
         a, h, h0 = ctx.saved_tensors
-        S = a.shape[1]
-        reverse = torch.arange(S - 1, -1, -1, device=a.device)
-        g_rev = _reorder(g, reverse)
-        g_rev[:, 0] += g_last
-        # step r of the reversed scan takes a_{S-r} (r >= 1); step 0, a_S
-        a_rev = _reorder(a, (reverse + 1).clamp_(max=S - 1))
-        lam = _reorder(lru_scan(a_rev, g_rev)[0], reverse)
-        da = _empty(*lam.shape, device=lam.device)
-        torch.mul(lam[:, 1:], h[:, :-1], out=da[:, 1:])
-        if h0 is None:
-            da[:, 0] = 0.0
-            dh0 = None
-        else:
-            torch.mul(lam[:, 0], h0, out=da[:, 0])
-            dh0 = a[:, 0] * lam[:, 0]
-        return da, lam, dh0
+        return lru_scan_bwd(a, h, h0, g.contiguous(),
+                            None if g_last is None else g_last.contiguous())
 
 
 def lru_scan_vjp(a: torch.Tensor, b: torch.Tensor,

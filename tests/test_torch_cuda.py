@@ -16,9 +16,12 @@ import torch
 from repro_torch.kernels.ckpt_pack import ops as pack_ops
 from repro_torch.kernels.ckpt_pack.ref import ckpt_pack_ref
 from repro_torch.kernels.flash_attention import ops as attn_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                      attention_lse_ref,
+                                                      attention_ref)
 from repro_torch.kernels.rglru_scan import ops as scan_ops
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (lru_scan_bwd_ref,
+                                                 rglru_scan_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -281,13 +284,136 @@ def test_rglru_scan_repeats_bit_for_bit_in_deterministic_mode(cuda):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,window,cap,qoff", [
+    (4, 2048, 2048, 9, 3, 64, 0, 0.0, 0),       # smollm's train step
+    (4, 1024, 1024, 24, 8, 64, 0, 0.0, 0),      # granite's
+    (1, 512, 512, 32, 8, 128, 0, 0.0, 0),       # qwen3-4b's heads, hd 128
+    (2, 333, 433, 9, 3, 64, 256, 50.0, 100),    # ragged, all three options
+    (1, 512, 512, 9, 3, 64, 0, 0.0, 0),
+    (2, 1000, 1000, 9, 3, 64, 0, 0.0, 0),
+    (3, 1536, 1536, 6, 2, 64, 0, 0.0, 0),
+    (1, 2048, 2048, 4, 2, 128, 0, 0.0, 0),
+    (1, 65, 65, 3, 3, 64, 0, 0.0, 0),           # G 1, a row past a tile
+    (2, 200, 200, 4, 1, 128, 48, 30.0, 0),      # window and softcap, hd 128
+    (1, 100, 300, 7, 1, 128, 0, 0.0, 200),      # q_offset, G 7
+])
+def test_flash_attention_bwd_kernel_within_tolerance(cuda, B, Sq, Sk, Hq,
+                                                     Hkv, hd, window, cap,
+                                                     qoff):
+    """The backward kernel, from the forward kernel's o and log-sum-exp,
+    against ``attention_bwd_ref`` in f32 on the same tensors: each of dq,
+    dk, dv within 2e-2 of its array's largest magnitude (P and dS round to
+    bf16 for the products, the gradients to bf16); the log-sum-exp (log2
+    domain) against ``attention_lse_ref``'s within 1e-3 (1 + |plain|).  One
+    forward and one backward launch counted."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Hq)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+                   for s in [(B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                             (B, Sk, Hkv, hd), (B, Sq, Hq, hd)])
+    kw = dict(window=window, softcap=cap, q_offset=qoff)
+    attn_ops.launches = attn_ops.bwd_launches = 0
+    o, lse = attn_ops.flash_attention_fwd_lse(q, k, v, **kw)
+    got = attn_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert attn_ops.launches == 1 and attn_ops.bwd_launches == 1
+    lse_nat = lse / attn_ops.LOG2E
+    lse_ref = attention_lse_ref(q, k, v, **kw)[1]
+    assert bool(((lse_nat - lse_ref).abs()
+                 <= 1e-3 * (1 + lse_ref.abs())).all())
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
+                             lse_nat, do.float(), **kw)
+    for x, y in zip(got, want):
+        assert x.dtype == torch.bfloat16 and x.shape == y.shape
+        assert bool(torch.isfinite(x).all())
+        assert float((x.float() - y).abs().max()) <= 2e-2 * float(
+            y.abs().max())
+
+
+def test_flash_attention_bwd_kernel_repeats_bit_for_bit(cuda):
+    """No atomics: two launches at smollm's train shape give the same
+    bits in dq, dk and dv."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+                   for s in [(4, 2048, 9, 64), (4, 2048, 3, 64),
+                             (4, 2048, 3, 64), (4, 2048, 9, 64)])
+    o, lse = attn_ops.flash_attention_fwd_lse(q, k, v)
+    first = attn_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    second = attn_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_flash_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    qb = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    q32 = qb.float()
+    with pytest.raises(ValueError):                            # f32
+        attn_ops.flash_attention_bwd(q32, q32, q32, q32, lse, q32)
+    q96 = torch.zeros(1, 8, 2, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                            # hd 96
+        attn_ops.flash_attention_bwd(q96, q96, q96, q96, lse, q96)
+    # TMA needs 16-byte strides: a row stride of 68 elements is refused
+    wide = torch.zeros(1, 8, 2, 68, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention_bwd(qb, wide[..., :64], wide[..., :64], qb,
+                                     lse, qb)
+    with pytest.raises(ValueError):                            # dO too
+        attn_ops.flash_attention_bwd(qb, qb, qb, qb, lse,
+                                     wide.expand(1, 8, 2, 68)[..., 2:66])
+    with pytest.raises(ValueError):                            # f32 lse
+        attn_ops.flash_attention_bwd(qb, qb, qb, qb, lse.double(), qb)
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+@pytest.mark.parametrize("B,S,W,with_h0,unaligned", [
+    (4, 2048, 4096, True, False),   # the hybrid train path's shape
+    (2, 300, 1000, False, False),   # ragged S and W, h0 = None
+    (2, 65, 100, True, False),      # one chunk and a step, W % 64 != 0
+    (2, 200, 65, True, False),      # W % 4 != 0: the cp.async route
+    (2, 300, 128, True, True),      # an unaligned base: cp.async
+    (3, 1, 64, True, False),        # S 1
+])
+def test_rglru_scan_reverse_mode_matches_plain(cuda, B, S, W, with_h0,
+                                               unaligned, deterministic):
+    """The kernel's reverse mode (``lru_scan_bwd``, one launch) against
+    ``lru_scan_bwd_ref``'s reversed loop on the same card tensors: da, db
+    and dh0 within the scan's f32 tolerance, 1e-5 + 1e-5 |plain|, in
+    deterministic mode (chained carries) and in default mode."""
+    a, b, h0 = _scan_inputs(cuda, B, S, W, with_h0, "model", B + S + W)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    g = torch.randn((B, S, W), generator=gen, device=cuda)
+    g_last = torch.randn((B, W), generator=gen, device=cuda)
+    h = rglru_scan_ref(a, b, h0)[0]
+    ins = (a, h, g)
+    if unaligned:
+        ins = tuple(torch.empty(t.numel() + 1, device=cuda)[1:].view_as(t)
+                    .copy_(t) for t in ins)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    scan_ops.launches = 0
+    try:
+        got = scan_ops.lru_scan_bwd(ins[0], ins[1], h0, ins[2], g_last)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert scan_ops.launches == 1
+    want = lru_scan_bwd_ref(a, h, h0, g, g_last)
+    for x, y in zip(got, want):
+        if y is None:
+            assert x is None
+            continue
+        assert bool(torch.isfinite(x).all())
+        assert bool(((x - y).abs() <= 1e-5 + 1e-5 * y.abs()).all())
+
+
 # ------------------------------------------------------------ train path
 @pytest.mark.parametrize("B,S", [(1, 512), (2, 1000), (4, 2048)])
 def test_flash_attention_vjp_grads_match_plain_path(cuda, B, S):
-    """The autograd Function's dq, dk, dv (kernel forward, backward through
-    the plain blocked path) against autograd through that plain path on
-    the same upstream gradient, bf16, smollm's heads: the same computation,
-    held to the kernel's bf16 tolerance (2e-2 + 2e-2 |plain|)."""
+    """The autograd Function's dq, dk, dv (the forward kernel, then the
+    backward kernel from its log-sum-exp) against autograd through the
+    plain blocked path on the same upstream gradient, bf16, smollm's heads:
+    the same function, held to the kernel's bf16 tolerance (2e-2 + 2e-2
+    |plain|)."""
     from repro_torch.models.layers import flash_attention_xla
 
     g = torch.Generator(device=cuda).manual_seed(S)

@@ -32,6 +32,7 @@ from repro_torch.configs import ARCHS
 from repro_torch.configs import get_config as torch_get_config
 from repro_torch.configs import get_smoke_config as torch_smoke_config
 from repro_torch.configs import xlstm_350m as config_module
+from repro_torch.convert import params_from_jax
 from repro_torch.core.comm import Comm
 from repro_torch.core.store import DatasetStore
 from repro_torch.core.tensor_ckpt import TensorCheckpoint, balanced_chunk_partition
@@ -215,6 +216,40 @@ def test_prefill_and_decode_match_reference(dtype):
                               "pos": torch.from_numpy(pos)})
         same(f"decode step {i}")
     assert int(tcache["length"]) == 16 and tcache["length"].dim() == 0
+
+
+def test_bf16_distance_from_f32_stays_within_twice_the_reference():
+    """Each package's bf16 prefill logits against its own f32 prefill for
+    the same weights (the reference's bf16 ``key(0)`` parameters, cast),
+    smoke config, B 2, S 128.  The f32 runs agree within 1e-5 of the
+    logits' scale.  The port's bf16 distance is larger than the
+    reference's (ROADMAP Queue 3: 1.27x here, 0.0463 against 0.0402 at
+    full size, B 1, S 128, ``tools/xlstm_bf16_distance.py``); this pins
+    it under 2x the reference's until the cause is found, when the bound
+    becomes 1x."""
+    cfg = get_smoke_config(ARCH)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 128),
+                                               dtype=np.int32)
+    host = {k: np.asarray(v)
+            for k, v in build_model(cfg).init(jax.random.key(0)).items()}
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        api = build_model(dataclasses.replace(cfg, dtype=dt))
+        tapi = torch_build_model(dataclasses.replace(
+            torch_smoke_config(ARCH), dtype=dt))
+        jp = {k: jnp.asarray(v, dt) for k, v in host.items()}
+        tp = params_from_jax({k: np.asarray(v) for k, v in jp.items()},
+                                 device="cpu")
+        ref, _ = jax.jit(api.prefill)(jp, {"tokens": tokens})
+        with torch.no_grad():
+            got, _ = tapi.prefill(tp, {"tokens": torch.from_numpy(tokens)})
+        out[dt] = (rec.np_(ref), rec.np_(got))
+    (r16, t16), (r32, t32) = out["bfloat16"], out["float32"]
+    scale = float(np.abs(r32).max())
+    assert float(np.abs(t32 - r32).max()) <= 1e-5 * scale
+    ref_dist = float(np.abs(r16 - r32).max()) / scale
+    port_dist = float(np.abs(t16 - t32).max()) / scale
+    assert 0 < ref_dist and port_dist <= 2 * ref_dist, (port_dist, ref_dist)
 
 
 @pytest.mark.parametrize("P", [7, 130])

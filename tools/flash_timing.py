@@ -12,8 +12,11 @@ that ROOT's sources; the rulers are always this checkout's
 the default flush and with the short one) and ``chip_smoke.host_ms`` (host
 issue time and back-to-back time per call, L2 warm).  The
 shapes are smollm-135m's heads (Hq 9, Hkv 3, hd 64, causal) at B 1 and each
-prompt length the chip smoke test serves, and at B 4, S 2048.  Prints one
-JSON line per ROOT, in the order given; needs one CUDA card.
+prompt length the chip smoke test serves, and at B 4, S 2048.  Where ROOT
+has the backward kernel (``flash_attention_bwd``), it is timed at B 4,
+S 2048 (the train step's shape) beside SDPA's backward on each backend
+(``chip_smoke._sdpa_bwd``), with the forward that writes the log-sum-exp.
+Prints one JSON line per ROOT, in the order given; needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -64,8 +67,29 @@ def time_root(root: Path) -> dict:
                     "ms_short_flush": smoke.time_ms(
                         kernel, flush_mb=smoke.SHORT_FLUSH_MB),
                     **smoke.host_ms(kernel)})
-    return {"root": str(root), "card": torch.cuda.get_device_name(0),
+    line = {"root": str(root), "card": torch.cuda.get_device_name(0),
             "timings": out}
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+
+    if hasattr(attn_ops, "flash_attention_bwd"):
+        from torch.nn.attention import SDPBackend
+
+        q, k, v, do = (torch.randn((4, 2048, H, hd), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for H in (Hq, Hkv, Hkv, Hq))
+        o, lse = attn_ops.flash_attention_fwd_lse(q, k, v)
+        line["backward"] = {
+            "shape": [4, 2048, 2048, Hq, Hkv, hd],
+            "ms": smoke.time_ms(lambda: attn_ops.flash_attention_bwd(
+                q, k, v, o, lse, do)),
+            "forward_lse_ms": smoke.time_ms(
+                lambda: attn_ops.flash_attention_fwd_lse(q, k, v)),
+            "sdpa_bwd_ms_by_backend": {
+                b.name: smoke._sdpa_bwd(q, k, v, do, b)
+                for b in (SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION)}}
+    return line
 
 
 def main(argv: list[str]) -> int:

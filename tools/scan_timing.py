@@ -19,13 +19,16 @@ the bound: those bytes over the card's published HBM rate.
 
 Where ROOT has the scan's gradient (``lru_scan_vjp``), its backward is
 timed too at the hybrid train path's shape (B 4, S 2048, W 4096, with h0),
-in default and in deterministic mode: the whole backward, the operations it
-is made of one by one on [B, S, W] f32 (``torch.flip`` over time, the same
-reorder by ``index_select`` into a new tensor and into a buffer made
-before, the reversed scan, the product for da, and ``torch.empty_like``,
-which deterministic mode fills), and the device time of each CUDA kernel
-the backward launches, from ``torch.profiler``.  Prints one JSON
-line per ROOT, in the order given; needs one CUDA card.
+in default and in deterministic mode: the whole backward through autograd,
+the device time of each CUDA kernel it launches (``torch.profiler``), and
+PAIRS alternating pairs of two routes to the same gradient, device time
+(``time_ms``) and host time (``host_ms``) each: the kernel's reverse mode
+(``lru_scan_bwd``, one launch; where ROOT has it) and the three-gather
+route of the first backward (``g`` and the shifted ``a`` reversed by
+``index_select`` into buffers that deterministic mode does not fill, the
+forward kernel on them, the result reversed, the products for da and dh0),
+written out here on ROOT's forward kernel.  Prints one JSON line per ROOT,
+in the order given; needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -36,12 +39,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 HERE = Path(__file__).resolve().parents[1]
 SEED = 0
 W = 4096
 SHAPES = [(4, 512), (1, 2048), (1, 512)]
 BACKWARD_SHAPE = (4, 2048)
 PROFILED_BACKWARDS = 5
+PAIRS = 10
 
 
 def _chip_smoke():
@@ -74,9 +80,40 @@ def _kernel_ms(torch, prof, runs: int) -> list[dict]:
     return sorted(rows, key=lambda r: -r["ms"])
 
 
+def _unfilled(torch, like):
+    """A tensor like ``like`` without deterministic mode's fill."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        return torch.empty_like(like)
+    finally:
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def gather_route(torch, scan_ops, a, h, h0, g, g_last):
+    """(da, db, dh0) as the first backward computed them: three reorders
+    by ``index_select``, the forward kernel on the reversed sequence, two
+    products."""
+    S = a.shape[1]
+    reverse = torch.arange(S - 1, -1, -1, device=a.device)
+
+    def reorder(x, index):
+        return torch.index_select(x, 1, index, out=_unfilled(torch, x))
+
+    g_rev = reorder(g, reverse)
+    g_rev[:, 0] += g_last
+    a_rev = reorder(a, (reverse + 1).clamp_(max=S - 1))
+    lam = reorder(scan_ops.lru_scan(a_rev, g_rev)[0], reverse)
+    da = _unfilled(torch, lam)
+    torch.mul(lam[:, 1:], h[:, :-1], out=da[:, 1:])
+    torch.mul(lam[:, 0], h0, out=da[:, 0])
+    return da, lam, a[:, 0] * lam[:, 0]
+
+
 def time_backward(smoke, torch, scan_ops) -> dict:
-    """The scan's backward and its parts, in default and deterministic
-    mode, at BACKWARD_SHAPE."""
+    """The scan's backward, in default and deterministic mode, at
+    BACKWARD_SHAPE: through autograd, its kernels, and PAIRS pairs of the
+    reverse mode and the three-gather route."""
     B, S = BACKWARD_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     a, b = _gates(torch, gen, B, S)
@@ -91,30 +128,35 @@ def time_backward(smoke, torch, scan_ops) -> dict:
         return torch.autograd.grad((h, h_last), ins, (g, g_last),
                                    retain_graph=True)
 
-    reverse = torch.arange(S - 1, -1, -1, device="cuda")
-    g_rev = g.flip(1)
-    lam = scan_ops.lru_scan(a, g_rev)[0]
-    buf, da = torch.empty_like(a), torch.empty_like(a)
-    parts = {
-        "flip": lambda: g.flip(1),
-        "index_select": lambda: torch.index_select(g, 1, reverse),
-        "index_select_into_buffer": lambda: torch.index_select(
-            g, 1, reverse, out=buf),
-        "reversed_scan": lambda: scan_ops.lru_scan(a, g_rev),
-        "product_da": lambda: torch.mul(lam[:, 1:], hv[:, :-1],
-                                        out=da[:, 1:]),
-        "empty_like": lambda: torch.empty_like(a),
-    }
+    routes = {"gathers": lambda: gather_route(torch, scan_ops, a, hv, h0, g,
+                                              g_last)}
+    if hasattr(scan_ops, "lru_scan_bwd"):
+        routes["reverse_mode"] = lambda: scan_ops.lru_scan_bwd(
+            a, hv, h0, g, g_last)
     was = torch.are_deterministic_algorithms_enabled()
-    out = {"shape": [B, S, W], "h0": True}
+    out = {"shape": [B, S, W], "h0": True, "pairs": PAIRS}
     try:
         for mode in (False, True):
             torch.use_deterministic_algorithms(mode)
             line = {"ms": smoke.time_ms(backward),
                     "forward_ms": smoke.time_ms(
-                        lambda: scan_ops.lru_scan(a, b, h0)),
-                    "parts_ms": {k: smoke.time_ms(f)
-                                 for k, f in parts.items()}}
+                        lambda: scan_ops.lru_scan(a, b, h0))}
+            pairs = {name: {"ms": [], "enqueue_ms": [], "back_to_back_ms": []}
+                     for name in routes}
+            for i in range(PAIRS):
+                # alternate which route goes first
+                for name in (list(routes) if i % 2 == 0
+                             else list(routes)[::-1]):
+                    fn = routes[name]
+                    host = smoke.host_ms(fn, iters=20, rounds=1)
+                    pairs[name]["ms"].append(smoke.time_ms(fn, iters=5))
+                    pairs[name]["enqueue_ms"].append(host["enqueue_ms"])
+                    pairs[name]["back_to_back_ms"].append(
+                        host["back_to_back_ms"])
+            line["routes"] = {
+                name: {k: {"median": float(np.median(v)), "min": min(v),
+                           "max": max(v)} for k, v in p.items()}
+                for name, p in pairs.items()}
             backward()
             torch.cuda.synchronize()
             try:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a train step's time goes: full smollm-135m (B 4, S 2048, remat,
-the flash kernel under autograd) on one card, as ``chip_smoke.py``'s
-train phase runs it, in deterministic mode.
+the flash kernels under autograd, forward and backward) on one card, as
+``chip_smoke.py``'s train phase runs it, in deterministic mode.
 
     python3 tools/train_profile.py
 
@@ -9,11 +9,13 @@ After two warm-up steps it prints one JSON line with
   * the step's host-clock time (ending in a synchronise) and, from
     ``torch.profiler`` over one more step, the device's busy time (the union
     of its kernels' intervals) and idle share, and the device time by
-    kernel, largest first and grouped into the flash kernel, the matrix
-    products (cuBLAS) and the rest;
+    kernel, largest first and grouped into the flash forward kernel, the
+    flash backward kernel's two passes, the matrix products (cuBLAS) and
+    the rest, with the attention backward's share of the busy time;
   * CUDA-event times of the pieces, each at the path's shape: one layer's
-    attention forward (the kernel) and its backward (the blocked
-    recompute), and one vocab chunk's loss forward and backward.
+    attention forward (the kernel, with its log-sum-exp) and its backward
+    (the backward kernel), and one vocab chunk's loss forward and
+    backward.
 Needs one CUDA card.
 """
 
@@ -114,10 +116,13 @@ def main() -> int:
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-    groups = {"flash_kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"flash_kernel": 0.0, "flash_bwd_kernel": 0.0, "gemm": 0.0,
+              "other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
-        if "flash" in low or "fwd_kernel" in low:
+        if "flash_bwd" in low:
+            groups["flash_bwd_kernel"] += ms
+        elif "flash" in low or "fwd_kernel" in low:
             groups["flash_kernel"] += ms
         elif any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")):
             groups["gemm"] += ms
@@ -158,10 +163,11 @@ def main() -> int:
         "step_ms": step_ms, "profiled_step_ms": profiled_ms,
         "device_busy_ms": busy, "device_idle_share": 1 - busy / profiled_ms,
         "device_kernel_ms_by_group": groups,
+        "attention_backward_share_of_busy": groups["flash_bwd_kernel"] / busy,
         "device_kernel_ms_top": top,
         "pieces_ms": {
             "attention_forward_kernel_one_layer": attn_fwd,
-            "attention_backward_recompute_one_layer": attn_bwd,
+            "attention_backward_kernel_one_layer": attn_bwd,
             "loss_chunk_forward": loss_fwd,
             "loss_chunk_forward_and_backward": loss_fb,
             "loss_chunks_per_step": -(-S // chunk)}}), flush=True)
