@@ -682,7 +682,8 @@ def check_flash_attention_bwd(cfg) -> dict:
     (hd 128) and a ragged case with window, softcap and q_offset; the
     forward's log-sum-exp against ``attention_lse_ref``'s; two launches
     bit-equal; its time beside its bound, the plain version's and SDPA's
-    backward's, and the forward's time with and without the log-sum-exp."""
+    backward's, the forward's time with and without the log-sum-exp, and,
+    printed per timed shape, each pass's blocks and the schedule taken."""
     from torch.nn.attention import SDPBackend
 
     from repro_torch.configs import get_config
@@ -774,6 +775,28 @@ def check_flash_attention_bwd(cfg) -> dict:
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "flops": ops, "bytes_moved": nbytes}
         line["tflops"] = ops / line["ms"] * 1e-9
+        # the kernel's schedule at this shape: each pass's blocks (one an
+        # SM at a time) in waves of this card's SMs, its heaviest block and
+        # the mean work of an SM in items
+        plan = attn_ops.bwd_plan(B, S, S, Hq, Hkv, hd)
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        line["schedule"] = {
+            "dq_pass": {"blocks": plan["dq_blocks"],
+                        "waves": plan["dq_blocks"] / sms,
+                        "heaviest_items": plan["dq_heaviest"],
+                        "mean_items_per_sm": plan["dq_items"] / sms},
+            "dkdv_pass": {"blocks": plan["dkdv_blocks"],
+                          "waves": plan["dkdv_blocks"] / sms,
+                          "heaviest_items": plan["dkdv_heaviest"],
+                          "mean_items_per_sm": plan["dkdv_items"] / sms,
+                          "chunk_bound_items": plan["chunk"],
+                          "split_key_blocks": plan["split_key_blocks"],
+                          "of_key_blocks": plan["key_blocks"]},
+            "sum_pass": {"blocks": plan["sum_blocks"]}, "sms": sms,
+            "plan_sms": plan["sms"]}
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd",
+              "shape": line["shape"], "ms": line["ms"],
+              "schedule": line["schedule"]})
         if plain:
             line["plain_ms"] = time_ms(lambda: attention_bwd_ref(
                 q, k, v, o, lse / attn_ops.LOG2E, do), iters=3)

@@ -57,24 +57,36 @@
 // D) (times 1 - tanh^2 under softcap), dV = P^T dO, dQ = dS K scale, dK =
 // dS^T Q scale.  Bound on the card: its five products, 10 * B * Hq * hd *
 // (causal pairs) operations at the bf16 peak, 2.5 times the forward's.
-// Two launches and no atomics, so every sum runs in one fixed order and a
-// launch repeats bit for bit:
-//   - the dq pass: one block a (batch*head, 64-row q tile), Q and dO
-//     resident, K and V streamed through the TMA ring over the k tiles the
-//     forward visited; S = Q K^T and dP = dO V^T as one group of wgmma,
-//     then dQ += dS K with dS from registers.  Its prologue computes D for
-//     its rows into shared memory and into a [B, Hq, Sq] buffer;
-//   - the dk/dv pass: one block a (batch*kv head, 64-key k tile), K and V
-//     resident, walking every q tile that visits it for each of the G query
-//     heads of the kv head, Q and dO streamed through the ring.  It computes
-//     the transposed products, S^T = K Q^T and dP^T = V dO^T, so P^T and
-//     dS^T sit in registers as the A fragments of dV += P^T dO and dK +=
-//     dS^T Q, exactly as P does for the forward's P V: every product of
-//     both passes is one of the forward's two wgmma shapes on the same
-//     swizzled tiles.  dK and dV stay in registers over all G heads.
-//   Each product group is waited for before the elementwise work (no
-//   overlap of the products with the exp inside a block; blocks on one SM
-//   fill each other's gaps).
+// Two passes and no atomics, so every sum runs in one fixed order and a
+// launch repeats bit for bit.  A block of either pass holds 128 resident
+// rows, one 64-row half for each of two consumer warpgroups, and one
+// thread of a producer warpgroup keeps a TMA ring full; every ring tile
+// feeds both halves, and setmaxnreg hands the producer's registers to the
+// consumers.
+//   - the dq pass: one block a (batch*head, 128-row q block), Q and dO
+//     resident, K and V streamed over the k tiles either half visits; S =
+//     Q K^T and dP = dO V^T as one group of wgmma, then dQ += dS K with dS
+//     from registers.  Its prologue computes D of its rows and writes each
+//     row's (lse2, D) into scratch for the dk/dv pass;
+//   - the dk/dv pass: one block a (batch*kv head, 128-key block) and a run
+//     of the (query head, q tile) items that visit it, K and V resident,
+//     Q, dO and the tile's 64 (lse2, D) pairs streamed, so each thread
+//     reads its columns' values from shared memory.  It computes the
+//     transposed products, S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T
+//     sit in registers as the A fragments of dV += P^T dO and dK += dS^T
+//     Q, exactly as P does for the forward's P V: every product of both
+//     passes is one of the forward's two wgmma shapes on the same swizzled
+//     tiles.  dK and dV stay in registers over the run;
+//   - the schedule (the host's, from the shape alone): where the dk/dv
+//     pass would have fewer blocks than an H100 SXM has SMs, its key
+//     blocks are cut into runs of at most T items, T the least that keeps
+//     the grid to one wave; a cut key block's runs write f32 partials, and
+//     a third short pass adds them in run order.
+//   Within a block the two warpgroups run free, each waiting for its own
+//   product groups: their P and dS (ALUs, exp unit) fall beside each
+//   other's products without being ordered.  P and dS take a
+//   specialisation per tile for the softcap and the mask, so an unmasked
+//   tile without softcap pays one FFMA, one ex2 and two ops a logit.
 // Every branch between an asynchronous product and its wait must look
 // warp-uniform to the compiler, or ptxas serialises the products: the role
 // split is broadcast from lane 0 and the barrier spin stays inside asm.
@@ -91,6 +103,10 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <cmath>
+#include <cstring>
+#include <type_traits>
+#include <vector>
 
 #if CUDART_VERSION < 12050
 #error "flash_attention needs CUDA 12.5+ (cudaGetDriverEntryPointByVersion)"
@@ -538,90 +554,186 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
 }
 
 // ---- backward
+constexpr int BR = 2 * BM;                  // resident rows a block: two halves
+constexpr int kBwdConsumers = 256;          // two consumer warpgroups
+constexpr int kBwdThreads = kBwdConsumers + 128;  // and the producer's
+// setmaxnreg moves registers between whole warpgroups within the block's
+// launch allocation (384 x 168): 256 x 240 + 128 x 24 fills it exactly
+constexpr int kRegsConsumer = 240;
+constexpr int kRegsProducer = 24;
+// The SMs the schedule plans for: an H100 SXM's.  The plan depends on the
+// shape alone, so a launch's bits do not depend on the card it runs on.
+constexpr int kPlanSms = 132;
+constexpr int kSumRows = 32;                // rows of a block of the sum pass
+
+__host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+
+// The mask's geometry, shared by both passes and the host's schedule
+struct Dims {
+  int Sq, Sk, nq_tiles, nk_tiles;
+  int causal, window, q_offset;
+
+  // the 64-key tiles that 64-row q tile qt visits, [kb, ke): the forward's
+  // skips
+  __host__ __device__ void k_tiles(int qt, int& kb, int& ke) const {
+    const int q0 = qt * BM;
+    const int first_q = q_offset + q0;
+    const int last_q = q_offset + imin(q0 + BM, Sq) - 1;
+    kb = 0;
+    ke = nk_tiles;
+    if (causal) ke = imin(ke, last_q / BN + 1);
+    if (window > 0) {
+      const int kmin = first_q - window + 1;
+      kb = kmin > 0 ? kmin / BN : 0;
+    }
+  }
+  // the q tiles that visit any of k tiles [kt_lo, kt_hi), [qlo, qhi): a
+  // contiguous run, as a q tile's k-tile range only grows with the tile
+  __host__ __device__ void q_tiles(int kt_lo, int kt_hi, int& qlo,
+                                   int& qhi) const {
+    qlo = nq_tiles;
+    qhi = 0;
+    for (int qt = 0; qt < nq_tiles; ++qt) {
+      int kb, ke;
+      k_tiles(qt, kb, ke);
+      if (kb < kt_hi && kt_lo < ke) {
+        qlo = imin(qlo, qt);
+        qhi = qt + 1;
+      }
+    }
+  }
+  // the k tiles the 128-row q block qb visits: the union of its halves'
+  __host__ __device__ void k_tiles_of_block(int qb, int& kb, int& ke) const {
+    k_tiles(2 * qb, kb, ke);
+    if (2 * qb + 1 < nq_tiles) {
+      int kb1, ke1;
+      k_tiles(2 * qb + 1, kb1, ke1);
+      kb = imin(kb, kb1);
+      ke = imax(ke, ke1);
+    }
+  }
+  // whether the (q tile at q0, k tile at k_lo) pair needs the per-element
+  // mask: the forward's diagonal, window-edge and ragged-Sk tiles
+  __host__ __device__ bool edge(int q0, int k_lo) const {
+    const int first_q = q_offset + q0;
+    return k_lo + BN > Sk || (causal && k_lo + BN - 1 > first_q)
+           || (window > 0 && k_lo <= first_q + BM - 1 - window);
+  }
+  __device__ __forceinline__ bool visible(int qp, int kp) const {
+    bool ok = kp < Sk;
+    if (causal) ok = ok && kp <= qp;
+    if (window > 0) ok = ok && kp > qp - window;
+    return ok;
+  }
+};
+
+// The dk/dv pass's schedule: its blocks walk the key blocks (128 keys) in
+// key order, one block a (batch*kv head, key block), so the heavy key
+// blocks of a causal mask go first.  A cut schedule (n_split > 0) gives key
+// block kb the units [first[kb], first[kb + 1]), one block a part and
+// (batch*kv head); a key block of several parts writes f32 partials from
+// slot poff[kb] on, and the sum pass adds them in part order.  Only a grid
+// of fewer blocks than kPlanSms is cut, so the table never holds more key
+// blocks than that.
+struct BwdSchedule {
+  int units, split_parts, n_split;
+  uint16_t first[kPlanSms + 1];
+  uint16_t poff[kPlanSms];         // 0xFFFF: one part, written as bf16
+  uint16_t split_kb[kPlanSms];     // the key blocks that are cut, in order
+};
+
 struct BwdParams {
   CUtensorMap tq, tk, tv, tdo;  // (hd, H, S, B) views of q, k, v and dO
   const __nv_bfloat16* o;
   const __nv_bfloat16* dout;
   long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
   const float* lse;             // [B, Hq, Sq], the forward's (log2 domain)
-  float* dd;                    // [B, Hq, Sq]: D, written by the dq pass
+  float2* ld;                   // [B, Hq, Sq_pad]: (lse2, D) a query row,
+                                // (+inf, 0) past Sq; written by the dq pass
+  float* part;                  // dK and dV partials of split key blocks
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
-  int Sq, Sk, Hq, Hkv, G, nq_tiles, nk_tiles;
-  int causal, window, q_offset;
+  Dims d;
+  int Hq, Hkv, G, bhkv, nqb, Sq_pad;  // bhkv = B * Hkv
   float scale, scale_log2;      // 1 / sqrt(hd); times log2(e)
   float softcap, cap_in, cap_out;
+  BwdSchedule sched;
 };
 
-// shared memory of either pass: two resident 64-row tiles (A0, A1), a ring
-// of STAGES pairs (R0, R1), D of the q tile (the dq pass), the barriers:
-// the residents' full, then R0's and R1's full, then their empty, a slot
-// each.  dq pass: A0 = Q, A1 = dO, R0 = K, R1 = V; dk/dv pass: A0 = K,
-// A1 = V, R0 = Q, R1 = dO.
+// shared memory of either pass: two resident 128-row operands (A0, A1),
+// each two 64-row tiles, one per warpgroup; a ring of STAGES pairs of
+// 64-row tiles (R0, R1) and their 64 (lse2, D) pairs (the dk/dv pass; the
+// dq pass keeps its own rows' there); the barriers: the residents' full,
+// then each slot's full, then each slot's empty.  dq pass: A0 = Q, A1 =
+// dO, R0 = K, R1 = V; dk/dv pass: A0 = K, A1 = V, R0 = Q, R1 = dO.
 template <int HD, int STAGES>
 struct BwdSmem {
-  static constexpr uint32_t kTile = BN * HD * 2;
+  static_assert(STAGES >= 2, "the dq pass keeps two halves' rows in kLD");
+  static constexpr uint32_t kTile = BM * HD * 2;
   static constexpr uint32_t kA0 = 0;
-  static constexpr uint32_t kA1 = kTile;
-  static constexpr uint32_t kR0 = 2 * kTile;
+  static constexpr uint32_t kA1 = 2 * kTile;
+  static constexpr uint32_t kR0 = 4 * kTile;
   static constexpr uint32_t kR1 = kR0 + STAGES * kTile;
-  static constexpr uint32_t kD = kR1 + STAGES * kTile;
-  static constexpr uint32_t kBar = kD + BM * 4;
-  static constexpr uint32_t kBytes = kBar + (1 + 4 * STAGES) * 8;
+  static constexpr uint32_t kLD = kR1 + STAGES * kTile;
+  static constexpr uint32_t kBar = kLD + STAGES * BM * 8;
+  static constexpr uint32_t kBytes = kBar + (1 + 2 * STAGES) * 8;
 };
 
-// the k tiles that q tile qt visits, [kb, ke): the forward's skips
-__device__ __forceinline__ void k_tiles(const BwdParams& p, int qt, int& kb,
-                                        int& ke) {
-  const int q0 = qt * BM;
-  const int first_q = p.q_offset + q0;
-  const int last_q = p.q_offset + min(q0 + BM, p.Sq) - 1;
-  kb = 0;
-  ke = p.nk_tiles;
-  if (p.causal) ke = min(ke, last_q / BN + 1);
-  if (p.window > 0) {
-    const int kmin = first_q - p.window + 1;
-    kb = kmin > 0 ? kmin / BN : 0;
-  }
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
-// whether the (q tile at q0, k tile at k_lo) pair needs the per-element
-// mask: the forward's diagonal, window-edge and ragged-Sk tiles
-__device__ __forceinline__ bool edge_tile(const BwdParams& p, int q0,
-                                          int k_lo) {
-  const int first_q = p.q_offset + q0;
-  return k_lo + BN > p.Sk || (p.causal && k_lo + BN - 1 > first_q)
-         || (p.window > 0 && k_lo <= first_q + BM - 1 - p.window);
-}
-
-__device__ __forceinline__ bool visible(const BwdParams& p, int qp, int kp) {
-  bool ok = kp < p.Sk;
-  if (p.causal) ok = ok && kp <= qp;
-  if (p.window > 0) ok = ok && kp > qp - p.window;
-  return ok;
+// one bulk copy (no tensor map) of `bytes` from global to shared memory
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // P and dS of one logit, in place: s = q.k on entry, P on exit; dp = dO.v
 // on entry, dS on exit.  P = exp2(y - lse2), y the logit in the forward's
 // log2 domain; dS = P (dP - D), times the softcap's 1 - tanh^2 (the scale
-// multiplies the finished sums once).  A masked logit takes the forward's
-// -1e30, so P = 0; lse2 = +inf (a row past Sq) gives P = 0 too.
+// multiplies the finished sums once).  A masked logit (ok false, read only
+// under MASK) takes the forward's -1e30, so P = 0; lse2 = +inf (a row past
+// Sq) gives P = 0 too.  CAP and MASK are template flags, chosen once a
+// tile: left to a run-time test, the compiler predicates the softcap's
+// tanhf into every logit, which costs more than the tile's products.
+template <bool CAP, bool MASK>
 __device__ __forceinline__ void p_ds(float& s, float& dp, float lse2, float d,
                                      bool ok, const BwdParams& p) {
-  float y, fac = 1.f;
-  if (p.softcap > 0.f) {
+  float arg, fac = 1.f;
+  if (CAP) {
     const float t = tanhf(s * p.cap_in);
-    y = p.cap_out * t;
+    arg = fmaf(p.cap_out, t, -lse2);
     fac = 1.f - t * t;
   } else {
-    y = s * p.scale_log2;
+    arg = fmaf(s, p.scale_log2, -lse2);
   }
-  if (!ok) y = NEG_INF;
-  const float pr = ex2(y - lse2);
+  if (MASK && !ok) arg = NEG_INF;
+  const float pr = ex2(arg);
   s = pr;
-  dp = pr * (dp - d) * fac;
+  dp = CAP ? pr * (dp - d) * fac : pr * (dp - d);
+}
+
+// f(cap, mask) with the softcap and mask flags as compile-time constants
+// (std::integral_constant), one specialisation a combination
+template <typename F>
+__device__ __forceinline__ void with_flags(bool cap, bool mask, F&& f) {
+  using T = std::true_type;
+  using N = std::false_type;
+  if (cap) {
+    if (mask) f(T{}, T{});
+    else f(T{}, N{});
+  } else {
+    if (mask) f(N{}, T{});
+    else f(N{}, N{});
+  }
 }
 
 // the accumulator's n-blocks 2j and 2j + 1 are the A fragment of the next
@@ -672,6 +784,17 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* dst,
         pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
 }
 
+// the same row in f32 (a partial of the dk/dv pass)
+template <int HD>
+__device__ __forceinline__ void store_row_f32(float* dst,
+                                              const float (&acc)[HD / 2],
+                                              int i, int c0) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+    *reinterpret_cast<float2*>(dst + 8 * j + c0) =
+        make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+}
+
 __device__ __forceinline__ float dot8(uint4 x, uint4 y) {
   const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
   const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
@@ -685,12 +808,23 @@ __device__ __forceinline__ float dot8(uint4 x, uint4 y) {
   return s;
 }
 
-// The dq pass: one block owns one (batch*head, 64-row q tile), Q and dO
-// resident, and walks the k tiles the forward visited, K and V through the
-// ring.  Its prologue computes D = rowsum(dO o) of the tile (read once
-// from device memory) into shared memory and into dd for the dk/dv pass.
-template <int HD, int STAGES, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
+__device__ __forceinline__ void regs_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kRegsProducer));
+}
+
+__device__ __forceinline__ void regs_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegsConsumer));
+}
+
+// The dq pass: one block owns one (batch*head, 128-row q block), Q and dO
+// resident, one 64-row half a warpgroup, and walks the k tiles either half
+// visits, K and V through the ring; each ring tile feeds both halves.  Its
+// prologue computes D = rowsum(dO o) of its rows (read once from device
+// memory) and stages (lse2, D) in shared memory and in ld for the dk/dv
+// pass.  A half wholly past the last q tile loads the last tile again: its
+// rows' lse2 is +inf, so it adds nothing and stores nothing.
+template <int HD, int STAGES>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
   using L = BwdSmem<HD, STAGES>;
   extern __shared__ unsigned char smem_raw[];
@@ -698,305 +832,392 @@ flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kA0, sDO = base + L::kA1;
   const uint32_t sK = base + L::kR0, sV = base + L::kR1;
-  float* sD = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kD);
+  float2* sLD = reinterpret_cast<float2*>(smem_raw + (base - raw) + L::kLD);
   const uint32_t res_full = base + L::kBar;
-  auto k_full = [&](int st) { return res_full + 8u * (1 + st); };
-  auto v_full = [&](int st) { return res_full + 8u * (1 + STAGES + st); };
-  auto k_empty = [&](int st) { return res_full + 8u * (1 + 2 * STAGES + st); };
-  auto v_empty = [&](int st) { return res_full + 8u * (1 + 3 * STAGES + st); };
+  auto full = [&](int st) { return res_full + 8u * (1 + st); };
+  auto empty = [&](int st) { return res_full + 8u * (1 + STAGES + st); };
 
   const int bh = blockIdx.x;
-  const int qt = p.nq_tiles - 1 - (int)blockIdx.y;   // heavy tiles first
+  const int qb = p.nqb - 1 - (int)blockIdx.y;   // heavy blocks first
   const int b = bh / p.Hq;
   const int h = bh % p.Hq;
   const int kvh = h / p.G;
-  const int q0 = qt * BM;
   int kt_begin, kt_end;
-  k_tiles(p, qt, kt_begin, kt_end);
-  const int n = max(kt_end - kt_begin, 0);
+  p.d.k_tiles_of_block(qb, kt_begin, kt_end);
+  const int n = imax(kt_end - kt_begin, 0);
 
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(k_full(st), 1);
-      mbar_init(v_full(st), 1);
-      mbar_init(k_empty(st), kConsumers);
-      mbar_init(v_empty(st), kConsumers);
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kBwdConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int role = __shfl_sync(0xffffffffu, threadIdx.x / kConsumers, 0);
-  if (role != 0) {
-    if (threadIdx.x == kConsumers && n > 0) {
-      mbar_expect_tx(res_full, 2 * L::kTile);
-      for (int c = 0; c < HD / kAtom; ++c) {
-        tma_load(sQ + c * kBox, &p.tq, res_full, c * kAtom, h, q0, b);
-        tma_load(sDO + c * kBox, &p.tdo, res_full, c * kAtom, h, q0, b);
+  // the role, broadcast from lane 0: 0 and 1 the consumer warpgroups, 2
+  // the producer
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 2) {
+    regs_producer();
+    if (threadIdx.x == kBwdConsumers && n > 0) {
+      mbar_expect_tx(res_full, 4 * L::kTile);
+      for (int r = 0; r < 2; ++r) {
+        const int q0 = imin(2 * qb + r, p.d.nq_tiles - 1) * BM;
+        for (int c = 0; c < HD / kAtom; ++c) {
+          tma_load(sQ + r * L::kTile + c * kBox, &p.tq, res_full, c * kAtom,
+                   h, q0, b);
+          tma_load(sDO + r * L::kTile + c * kBox, &p.tdo, res_full,
+                   c * kAtom, h, q0, b);
+        }
       }
       for (int i = 0; i < n; ++i) {
         const int st = i % STAGES;
-        const uint32_t ph = ((i / STAGES) & 1) ^ 1;
         const int k0 = (kt_begin + i) * BN;
-        mbar_wait(k_empty(st), ph);
-        mbar_expect_tx(k_full(st), L::kTile);
-        for (int c = 0; c < HD / kAtom; ++c)
-          tma_load(sK + st * L::kTile + c * kBox, &p.tk, k_full(st),
-                   c * kAtom, kvh, k0, b);
-        mbar_wait(v_empty(st), ph);
-        mbar_expect_tx(v_full(st), L::kTile);
-        for (int c = 0; c < HD / kAtom; ++c)
-          tma_load(sV + st * L::kTile + c * kBox, &p.tv, v_full(st),
-                   c * kAtom, kvh, k0, b);
+        mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * L::kTile);
+        for (int c = 0; c < HD / kAtom; ++c) {
+          tma_load(sK + st * L::kTile + c * kBox, &p.tk, full(st), c * kAtom,
+                   kvh, k0, b);
+          tma_load(sV + st * L::kTile + c * kBox, &p.tv, full(st), c * kAtom,
+                   kvh, k0, b);
+        }
       }
     }
-    return;
-  }
+  } else {
+    regs_consumer();
+    const int w = role;                      // this warpgroup's half
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0, r0 + 8
+    const int c0 = 2 * (lane & 3);           // and columns 8j + c0, + 1
+    const int q0 = (2 * qb + w) * BM;
+    float2* rows = sLD + w * BM;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16 + (lane >> 2);   // this thread's rows: r0, r0 + 8
-  const int c0 = 2 * (lane & 3);            // and columns 8j + c0, + 1
-
-  // D of the tile: two threads a row, half the head dim each
-  {
-    const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
-    const int qrow = q0 + row;
-    float acc = 0.f;
-    if (qrow < p.Sq) {
-      const uint4* po = reinterpret_cast<const uint4*>(
-          p.o + b * p.o_sb + qrow * p.o_ss + h * p.o_sh + half * (HD / 2));
-      const uint4* pd = reinterpret_cast<const uint4*>(
-          p.dout + b * p.do_sb + qrow * p.do_ss + h * p.do_sh
-          + half * (HD / 2));
+    // (lse2, D) of the half's rows: two threads a row, half the head dim
+    // each; rows past Sq take (+inf, 0)
+    {
+      const int row = t >> 1, half = t & 1;
+      const int qrow = q0 + row;
+      const bool in = qrow < p.d.Sq;
+      float acc = 0.f;
+      if (in) {
+        const uint4* po = reinterpret_cast<const uint4*>(
+            p.o + b * p.o_sb + qrow * p.o_ss + h * p.o_sh + half * (HD / 2));
+        const uint4* pd = reinterpret_cast<const uint4*>(
+            p.dout + b * p.do_sb + qrow * p.do_ss + h * p.do_sh
+            + half * (HD / 2));
 #pragma unroll
-      for (int c = 0; c < HD / 16; ++c) acc += dot8(po[c], pd[c]);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      sD[row] = acc;
-      if (qrow < p.Sq) p.dd[(long long)bh * p.Sq + qrow] = acc;
-    }
-    asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
-  }
-  float lse2[2], dd[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qrow = q0 + r0 + 8 * i;
-    lse2[i] = qrow < p.Sq ? p.lse[(long long)bh * p.Sq + qrow] : CUDART_INF_F;
-    dd[i] = sD[r0 + 8 * i];
-  }
-
-  float dq[HD / 2];
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
-  float s[32], dp[32];
-  uint32_t pa[4][4];
-  const int first_q = p.q_offset + q0;
-  if (n > 0) mbar_wait(res_full, 0);
-  for (int i = 0; i < n; ++i) {
-    const int st = i % STAGES;
-    const uint32_t ph = (i / STAGES) & 1;
-    const int k_lo = (kt_begin + i) * BN;
-    const uint32_t tk = sK + st * L::kTile, tv = sV + st * L::kTile;
-    mbar_wait(k_full(st), ph);
-    mbar_wait(v_full(st), ph);
-    wg_fence();
-    wg_abt<HD>(s, sQ, tk);       // S = Q K^T
-    wg_abt<HD>(dp, sDO, tv);     // dP = dO V^T
-    wg_commit();
-    wg_wait<0>();
-    pin(s);
-    pin(dp);
-    mbar_arrive(v_empty(st));
-    const bool edge = edge_tile(p, q0, k_lo);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool ok = !edge || visible(p, first_q + r0 + 8 * r,
-                                         k_lo + 8 * j + c0 + (e & 1));
-        p_ds(s[4 * j + e], dp[4 * j + e], lse2[r], dd[r], ok, p);
+        for (int c = 0; c < HD / 16; ++c) acc += dot8(po[c], pd[c]);
       }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) {
+        const float2 v = in ? make_float2(p.lse[(long long)bh * p.d.Sq + qrow],
+                                          acc)
+                            : make_float2(CUDART_INF_F, 0.f);
+        rows[row] = v;
+        p.ld[(long long)bh * p.Sq_pad + qrow] = v;
+      }
+      bar_sync(1 + w, 128);
     }
-    pack_a(pa, dp);
-    wg_fence();
-    wg_at<HD>(dq, pa, tk);       // dQ += dS K
-    wg_commit();
-    wg_wait<0>();
-    pin(dq);
-    pin(pa);
-    mbar_arrive(k_empty(st));
-  }
+    float lse2[2], dd[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 v = rows[r0 + 8 * i];
+      lse2[i] = v.x;
+      dd[i] = v.y;
+    }
+
+    float dq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t pa[4][4];
+    const int first_q = p.d.q_offset + q0;
+    const uint32_t tQ = sQ + w * L::kTile, tDO = sDO + w * L::kTile;
+    if (n > 0) mbar_wait(res_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % STAGES;
+      const int k_lo = (kt_begin + i) * BN;
+      const uint32_t tk = sK + st * L::kTile, tv = sV + st * L::kTile;
+      mbar_wait(full(st), (i / STAGES) & 1);
+      wg_fence();
+      wg_abt<HD>(s, tQ, tk);       // S = Q K^T
+      wg_abt<HD>(dp, tDO, tv);     // dP = dO V^T
+      wg_commit();
+      wg_wait<0>();
+      pin(s);
+      pin(dp);
+      with_flags(p.softcap > 0.f, p.d.edge(q0, k_lo), [&](auto cap,
+                                                          auto mask) {
+        constexpr bool CAP = decltype(cap)::value;
+        constexpr bool MASK = decltype(mask)::value;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const bool ok = !MASK || p.d.visible(first_q + r0 + 8 * r,
+                                                 k_lo + 8 * j + c0 + (e & 1));
+            p_ds<CAP, MASK>(s[4 * j + e], dp[4 * j + e], lse2[r], dd[r], ok,
+                            p);
+          }
+        }
+      });
+      pack_a(pa, dp);
+      wg_fence();
+      wg_at<HD>(dq, pa, tk);       // dQ += dS K
+      wg_commit();
+      wg_wait<0>();
+      pin(dq);
+      pin(pa);
+      mbar_arrive(empty(st));
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qrow = q0 + r0 + 8 * i;
-    if (qrow < p.Sq)
-      store_row<HD>(p.dq + b * p.dq_sb + qrow * p.dq_ss + h * p.dq_sh, dq, i,
-                    c0, p.scale);
+    for (int i = 0; i < 2; ++i) {
+      const int qrow = q0 + r0 + 8 * i;
+      if (qrow < p.d.Sq)
+        store_row<HD>(p.dq + b * p.dq_sb + qrow * p.dq_ss + h * p.dq_sh, dq,
+                      i, c0, p.scale);
+    }
   }
 }
 
-// The dk/dv pass: one block owns one (batch*kv head, 64-key k tile), K and
-// V resident, and walks every q tile that visits it, for each of the G
-// query heads of its kv head in turn, Q and dO through the ring.  It works
-// on the transposed products (S^T = K Q^T, dP^T = V dO^T), so its rows are
-// keys and P^T and dS^T are the A fragments of dV += P^T dO and dK += dS^T
-// Q, as P is of the forward's P V.  dK and dV stay in registers across all
-// G heads and q tiles, in one fixed order: no atomics, the same bits on
-// every launch.
-template <int HD, int STAGES, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
+// The block's key block, part and parts, and its partials' first slot (-1
+// uncut), from its unit (blockIdx.x / (B Hkv)) and the schedule
+__device__ __forceinline__ void dkdv_unit(const BwdSchedule& s, int nkb,
+                                          int u, int& kb, int& part,
+                                          int& parts, int& poff) {
+  if (s.n_split == 0) {
+    kb = u;
+    part = 0;
+    parts = 1;
+    poff = -1;
+    return;
+  }
+  int lo = 0, hi = nkb;            // first[lo] <= u < first[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (s.first[mid] <= u) lo = mid;
+    else hi = mid;
+  }
+  kb = lo;
+  part = u - s.first[lo];
+  parts = s.first[lo + 1] - s.first[lo];
+  poff = s.poff[lo] == 0xFFFF ? -1 : s.poff[lo];
+}
+
+// The dk/dv pass: one block owns one (batch*kv head, 128-key block), K and
+// V resident, one 64-key half a warpgroup, and walks a run of the items
+// that visit it: every (query head of the kv head, q tile) pair, head by
+// head, Q, dO and the tile's (lse2, D) through the ring, each ring tile
+// feeding both halves.  It works on the transposed products (S^T = K Q^T,
+// dP^T = V dO^T), so its rows are keys and P^T and dS^T are the A
+// fragments of dV += P^T dO and dK += dS^T Q, as P is of the forward's P V.
+// dK and dV stay in registers over the run, in one fixed order.  A key
+// block whose items are split over several blocks has each write its f32
+// sums to its partial slot; the sum pass adds them in part order.  No
+// atomics: the same bits on every launch.
+template <int HD, int STAGES>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dkdv_kernel(const __grid_constant__ BwdParams p) {
   using L = BwdSmem<HD, STAGES>;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t sK = base + L::kA0, sV = base + L::kA1;
   const uint32_t sQ = base + L::kR0, sDO = base + L::kR1;
+  const uint32_t sLDu = base + L::kLD;
+  const float2* sLD = reinterpret_cast<const float2*>(smem_raw + (base - raw)
+                                                      + L::kLD);
   const uint32_t res_full = base + L::kBar;
-  auto q_full = [&](int st) { return res_full + 8u * (1 + st); };
-  auto do_full = [&](int st) { return res_full + 8u * (1 + STAGES + st); };
-  auto q_empty = [&](int st) { return res_full + 8u * (1 + 2 * STAGES + st); };
-  auto do_empty = [&](int st) { return res_full + 8u * (1 + 3 * STAGES + st); };
+  auto full = [&](int st) { return res_full + 8u * (1 + st); };
+  auto empty = [&](int st) { return res_full + 8u * (1 + STAGES + st); };
 
-  const int b = blockIdx.x / p.Hkv;
-  const int kvh = blockIdx.x % p.Hkv;
-  const int kt = blockIdx.y;                 // k tile 0 (the heaviest) first
-  const int k0 = kt * BN;
-  // the q tiles that visit this k tile: a contiguous run, as the forward's
-  // k-tile range only grows with the q tile
-  int qt_lo = p.nq_tiles, qt_hi = 0;
-  for (int qt = 0; qt < p.nq_tiles; ++qt) {
-    int kb, ke;
-    k_tiles(p, qt, kb, ke);
-    if (kb <= kt && kt < ke) {
-      qt_lo = min(qt_lo, qt);
-      qt_hi = qt + 1;
-    }
-  }
-  const int nqi = max(qt_hi - qt_lo, 0);
+  const int bkv = blockIdx.x % p.bhkv;
+  const int u = blockIdx.x / p.bhkv;
+  const int b = bkv / p.Hkv;
+  const int kvh = bkv % p.Hkv;
+  int kb, part, parts, poff;
+  dkdv_unit(p.sched, (p.d.nk_tiles + 1) / 2, u, kb, part, parts, poff);
+  const int k0 = kb * BR;
+  int qt_lo, qt_hi;
+  p.d.q_tiles(2 * kb, imin(2 * kb + 2, p.d.nk_tiles), qt_lo, qt_hi);
+  const int nqi = imax(qt_hi - qt_lo, 0);
   const int items = nqi * p.G;
+  const int i_begin = part * items / parts;
+  const int n = (part + 1) * items / parts - i_begin;
 
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(q_full(st), 1);
-      mbar_init(do_full(st), 1);
-      mbar_init(q_empty(st), kConsumers);
-      mbar_init(do_empty(st), kConsumers);
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kBwdConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int role = __shfl_sync(0xffffffffu, threadIdx.x / kConsumers, 0);
-  if (role != 0) {
-    if (threadIdx.x == kConsumers && items > 0) {
-      mbar_expect_tx(res_full, 2 * L::kTile);
-      for (int c = 0; c < HD / kAtom; ++c) {
-        tma_load(sK + c * kBox, &p.tk, res_full, c * kAtom, kvh, k0, b);
-        tma_load(sV + c * kBox, &p.tv, res_full, c * kAtom, kvh, k0, b);
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 2) {
+    regs_producer();
+    if (threadIdx.x == kBwdConsumers && n > 0) {
+      mbar_expect_tx(res_full, 4 * L::kTile);
+      for (int r = 0; r < 2; ++r) {
+        // a half past the last k tile loads the last tile again: its keys
+        // are masked (kp >= Sk), so it adds nothing and stores nothing
+        const int kr = imin(2 * kb + r, p.d.nk_tiles - 1) * BN;
+        for (int c = 0; c < HD / kAtom; ++c) {
+          tma_load(sK + r * L::kTile + c * kBox, &p.tk, res_full, c * kAtom,
+                   kvh, kr, b);
+          tma_load(sV + r * L::kTile + c * kBox, &p.tv, res_full, c * kAtom,
+                   kvh, kr, b);
+        }
       }
-      for (int i = 0; i < items; ++i) {
-        const int st = i % STAGES;
-        const uint32_t ph = ((i / STAGES) & 1) ^ 1;
+      for (int j = 0; j < n; ++j) {
+        const int i = i_begin + j;
+        const int st = j % STAGES;
         const int h = kvh * p.G + i / nqi;
         const int q0 = (qt_lo + i % nqi) * BM;
-        mbar_wait(q_empty(st), ph);
-        mbar_expect_tx(q_full(st), L::kTile);
-        for (int c = 0; c < HD / kAtom; ++c)
-          tma_load(sQ + st * L::kTile + c * kBox, &p.tq, q_full(st),
+        mbar_wait(empty(st), ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * L::kTile + BM * 8);
+        for (int c = 0; c < HD / kAtom; ++c) {
+          tma_load(sQ + st * L::kTile + c * kBox, &p.tq, full(st), c * kAtom,
+                   h, q0, b);
+          tma_load(sDO + st * L::kTile + c * kBox, &p.tdo, full(st),
                    c * kAtom, h, q0, b);
-        mbar_wait(do_empty(st), ph);
-        mbar_expect_tx(do_full(st), L::kTile);
-        for (int c = 0; c < HD / kAtom; ++c)
-          tma_load(sDO + st * L::kTile + c * kBox, &p.tdo, do_full(st),
-                   c * kAtom, h, q0, b);
+        }
+        bulk_load(sLDu + st * BM * 8,
+                  p.ld + ((long long)(b * p.Hq + h) * p.Sq_pad + q0), BM * 8,
+                  full(st));
       }
     }
-    return;
-  }
+  } else {
+    regs_consumer();
+    const int w = role;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int r0 = warp * 16 + (lane >> 2);  // this thread's keys: r0, r0 + 8
+    const int c0 = 2 * (lane & 3);           // and queries 8j + c0, + 1
+    const int k_lo = k0 + w * BN;
+    const uint32_t tK = sK + w * L::kTile, tV = sV + w * L::kTile;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16 + (lane >> 2);   // this thread's keys: r0, r0 + 8
-  const int c0 = 2 * (lane & 3);            // and queries 8j + c0, + 1
+    float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t pa[4][4], pb[4][4];
+    if (n > 0) mbar_wait(res_full, 0);
+    for (int j = 0; j < n; ++j) {
+      const int i = i_begin + j;
+      const int st = j % STAGES;
+      const int q0 = (qt_lo + i % nqi) * BM;
+      const uint32_t tq = sQ + st * L::kTile, tdo = sDO + st * L::kTile;
+      mbar_wait(full(st), (j / STAGES) & 1);
+      wg_fence();
+      wg_abt<HD>(s, tK, tq);       // S^T = K Q^T
+      wg_abt<HD>(dp, tV, tdo);     // dP^T = V dO^T
+      wg_commit();
+      wg_wait<0>();
+      pin(s);
+      pin(dp);
+      const int first_q = p.d.q_offset + q0;
+      const float2* ld = sLD + st * BM;
+      with_flags(p.softcap > 0.f, p.d.edge(q0, k_lo), [&](auto cap,
+                                                          auto mask) {
+        constexpr bool CAP = decltype(cap)::value;
+        constexpr bool MASK = decltype(mask)::value;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          // (lse2, D) of queries 8jj + c0 and + 1
+          const float4 v = *reinterpret_cast<const float4*>(ld + 8 * jj + c0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * jj + c0 + (e & 1);
+            const bool ok = !MASK || p.d.visible(first_q + col,
+                                                 k_lo + r0 + 8 * (e >> 1));
+            p_ds<CAP, MASK>(s[4 * jj + e], dp[4 * jj + e],
+                            (e & 1) ? v.z : v.x, (e & 1) ? v.w : v.y, ok, p);
+          }
+        }
+      });
+      pack_a(pa, s);
+      pack_a(pb, dp);
+      wg_fence();
+      wg_at<HD>(dv, pa, tdo);      // dV += P^T dO
+      wg_at<HD>(dk, pb, tq);       // dK += dS^T Q
+      wg_commit();
+      wg_wait<0>();
+      pin(dv);
+      pin(dk);
+      pin(pa);
+      pin(pb);
+      mbar_arrive(empty(st));
+    }
 
-  float dk[HD / 2], dv[HD / 2];
+    if (poff < 0) {
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
-  float s[32], dp[32];
-  uint32_t pa[4][4], pb[4][4];
-  if (items > 0) mbar_wait(res_full, 0);
-  for (int i = 0; i < items; ++i) {
-    const int st = i % STAGES;
-    const uint32_t ph = (i / STAGES) & 1;
-    const int h = kvh * p.G + i / nqi;
-    const int q0 = (qt_lo + i % nqi) * BM;
-    const long long row = (long long)(b * p.Hq + h) * p.Sq;
-    // lse and D of the tile's 64 queries, lane L holding queries L and
-    // L + 32; each thread takes its columns' values by shuffles below
-    float lse_lo = CUDART_INF_F, lse_hi = CUDART_INF_F, d_lo = 0.f, d_hi = 0.f;
-    if (q0 + lane < p.Sq) {
-      lse_lo = p.lse[row + q0 + lane];
-      d_lo = p.dd[row + q0 + lane];
-    }
-    if (q0 + 32 + lane < p.Sq) {
-      lse_hi = p.lse[row + q0 + 32 + lane];
-      d_hi = p.dd[row + q0 + 32 + lane];
-    }
-    const uint32_t tq = sQ + st * L::kTile, tdo = sDO + st * L::kTile;
-    mbar_wait(q_full(st), ph);
-    mbar_wait(do_full(st), ph);
-    wg_fence();
-    wg_abt<HD>(s, sK, tq);       // S^T = K Q^T
-    wg_abt<HD>(dp, sV, tdo);     // dP^T = V dO^T
-    wg_commit();
-    wg_wait<0>();
-    pin(s);
-    pin(dp);
-    const bool edge = edge_tile(p, q0, k0);
-    const int first_q = p.q_offset + q0;
+      for (int i = 0; i < 2; ++i) {
+        const int kp = k_lo + r0 + 8 * i;
+        if (kp >= p.d.Sk) continue;
+        store_row<HD>(p.dk + b * p.dk_sb + kp * p.dk_ss + kvh * p.dk_sh, dk,
+                      i, c0, p.scale);
+        store_row<HD>(p.dv + b * p.dv_sb + kp * p.dv_ss + kvh * p.dv_sh, dv,
+                      i, c0, 1.f);
+      }
+    } else {
+      // slot (bkv, poff + part): dK's 128 x HD f32, then dV's
+      float* slot = p.part + ((long long)bkv * p.sched.split_parts + poff
+                              + part) * (2 * BR * HD);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + c0 + (e & 1);
-        const float l2 = __shfl_sync(0xffffffffu, j < 4 ? lse_lo : lse_hi,
-                                     col & 31);
-        const float d = __shfl_sync(0xffffffffu, j < 4 ? d_lo : d_hi,
-                                    col & 31);
-        const bool ok = !edge || visible(p, first_q + col,
-                                         k0 + r0 + 8 * (e >> 1));
-        p_ds(s[4 * j + e], dp[4 * j + e], l2, d, ok, p);
+      for (int i = 0; i < 2; ++i) {
+        const int row = w * BM + r0 + 8 * i;
+        store_row_f32<HD>(slot + row * HD, dk, i, c0);
+        store_row_f32<HD>(slot + BR * HD + row * HD, dv, i, c0);
       }
     }
-    pack_a(pa, s);
-    pack_a(pb, dp);
-    wg_fence();
-    wg_at<HD>(dv, pa, tdo);      // dV += P^T dO
-    wg_at<HD>(dk, pb, tq);       // dK += dS^T Q
-    wg_commit();
-    wg_wait<0>();
-    pin(dv);
-    pin(dk);
-    pin(pa);
-    pin(pb);
-    mbar_arrive(q_empty(st));
-    mbar_arrive(do_empty(st));
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kp = k0 + r0 + 8 * i;
-    if (kp >= p.Sk) continue;
-    store_row<HD>(p.dk + b * p.dk_sb + kp * p.dk_ss + kvh * p.dk_sh, dk, i,
-                  c0, p.scale);
-    store_row<HD>(p.dv + b * p.dv_sb + kp * p.dv_ss + kvh * p.dv_sh, dv, i,
-                  c0, 1.f);
+// The sum pass: a split key block's partials added in part order, dK times
+// the scale, to bf16.  One block a (split key block, 32 rows, batch*kv
+// head), four columns a thread.
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_sum_kernel(const __grid_constant__ BwdParams p) {
+  const int s = blockIdx.x / (BR / kSumRows);
+  const int rows0 = (blockIdx.x % (BR / kSumRows)) * kSumRows;
+  const int bkv = blockIdx.y;
+  const int b = bkv / p.Hkv;
+  const int kvh = bkv % p.Hkv;
+  const int kb = p.sched.split_kb[s];
+  const int parts = p.sched.first[kb + 1] - p.sched.first[kb];
+  const float* slots = p.part + ((long long)bkv * p.sched.split_parts
+                                 + p.sched.poff[kb]) * (2 * BR * HD);
+  for (int idx = threadIdx.x; idx < kSumRows * HD / 4; idx += 256) {
+    const int row = rows0 + idx / (HD / 4);
+    const int col = (idx % (HD / 4)) * 4;
+    const int kp = kb * BR + row;
+    if (kp >= p.d.Sk) continue;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+    for (int q = 0; q < parts; ++q) {
+      const float* src = slots + (long long)q * (2 * BR * HD) + row * HD + col;
+      const float4 x = *reinterpret_cast<const float4*>(src);
+      const float4 y = *reinterpret_cast<const float4*>(src + BR * HD);
+      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+      c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
+    }
+    *reinterpret_cast<uint2*>(p.dk + b * p.dk_sb + kp * p.dk_ss
+                              + kvh * p.dk_sh + col) =
+        make_uint2(pack_bf16(a.x * p.scale, a.y * p.scale),
+                   pack_bf16(a.z * p.scale, a.w * p.scale));
+    *reinterpret_cast<uint2*>(p.dv + b * p.dv_sb + kp * p.dv_ss
+                              + kvh * p.dv_sh + col) =
+        make_uint2(pack_bf16(c.x, c.y), pack_bf16(c.z, c.w));
   }
 }
 
@@ -1086,27 +1307,141 @@ int launch(const Params& p, int batch_heads, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the dq pass (which writes D), then the dk/dv pass (which reads it), on
-// one stream
-template <int HD, int STAGES, int MIN_BLOCKS>
-int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
-  const size_t smem = BwdSmem<HD, STAGES>::kBytes + 1024;
-  auto dq_kernel = flash_bwd_dq_kernel<HD, STAGES, MIN_BLOCKS>;
-  auto dkdv_kernel = flash_bwd_dkdv_kernel<HD, STAGES, MIN_BLOCKS>;
+// ---- the backward's schedule (host)
+
+struct BwdPlan {
+  Dims d;
+  int B, Hq, Hkv, hd;
+  int nqb, nkb, Sq_pad;
+  BwdSchedule sched;
+  long long ld_bytes, part_bytes;
+  long long dq_blocks, dkdv_blocks, sum_blocks;
+  long long dq_items, dkdv_items;
+  int dq_heaviest, dkdv_heaviest, chunk;
+};
+
+// The dq pass has one block a (batch*head, q block), heaviest first.  The
+// dk/dv pass has an item a (query head, q tile) that visits a key block,
+// and one block a (batch*kv head, key block).  Where that grid would leave
+// SMs idle (fewer blocks than kPlanSms), each key block is cut into runs of
+// at most T items, T the least for which the runs still fit one wave.
+void make_plan(BwdPlan& pl) {
+  const Dims& d = pl.d;
+  const int G = pl.Hq / pl.Hkv, bhkv = pl.B * pl.Hkv, bh = pl.B * pl.Hq;
+  pl.nqb = (d.nq_tiles + 1) / 2;
+  pl.nkb = (d.nk_tiles + 1) / 2;
+  pl.Sq_pad = pl.nqb * BR;
+
+  pl.dq_blocks = (long long)bh * pl.nqb;
+  for (int qb = 0; qb < pl.nqb; ++qb) {
+    int kb, ke;
+    d.k_tiles_of_block(qb, kb, ke);
+    const int n = imax(ke - kb, 0);
+    pl.dq_heaviest = imax(pl.dq_heaviest, n);
+    pl.dq_items += (long long)n * bh;
+  }
+
+  // items[kb]: G times the q tiles that visit key block kb, in one pass
+  // over the q tiles (each visits a run of key blocks)
+  std::vector<int> items(pl.nkb + 1, 0);
+  for (int qt = 0; qt < d.nq_tiles; ++qt) {
+    int kb, ke;
+    d.k_tiles(qt, kb, ke);
+    if (kb >= ke) continue;
+    items[kb / 2] += G;
+    items[(ke + 1) / 2] -= G;
+  }
+  for (int kb = 0; kb < pl.nkb; ++kb) {
+    if (kb > 0) items[kb] += items[kb - 1];
+    pl.dkdv_items += (long long)items[kb] * bhkv;
+    pl.dkdv_heaviest = imax(pl.dkdv_heaviest, items[kb]);
+  }
+  BwdSchedule& s = pl.sched;
+  s.units = pl.nkb;
+  pl.chunk = pl.dkdv_heaviest;
+  if ((long long)pl.nkb * bhkv < kPlanSms) {
+    auto runs = [&](int kb, int t) { return imax(1, (items[kb] + t - 1) / t); };
+    auto fits = [&](int t) {
+      long long units = 0;
+      for (int kb = 0; kb < pl.nkb; ++kb) units += runs(kb, t);
+      return units * bhkv <= kPlanSms;
+    };
+    // the runs only shrink as T grows, and T = the heaviest leaves every
+    // key block whole, which fits
+    int lo = 1, hi = imax(pl.dkdv_heaviest, 1);
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (fits(mid)) hi = mid;
+      else lo = mid + 1;
+    }
+    const int T = lo;
+    s.units = 0;
+    pl.chunk = T;
+    pl.dkdv_heaviest = 0;
+    for (int kb = 0; kb < pl.nkb; ++kb) {
+      const int np = runs(kb, T);
+      s.first[kb] = (uint16_t)s.units;
+      s.units += np;
+      s.poff[kb] = 0xFFFF;
+      if (np > 1) {
+        s.poff[kb] = (uint16_t)s.split_parts;
+        s.split_parts += np;
+        s.split_kb[s.n_split++] = (uint16_t)kb;
+      }
+      pl.dkdv_heaviest = imax(pl.dkdv_heaviest, (items[kb] + np - 1) / np);
+    }
+    s.first[pl.nkb] = (uint16_t)s.units;
+  }
+  pl.dkdv_blocks = (long long)s.units * bhkv;
+  pl.sum_blocks = (long long)s.n_split * (BR / kSumRows) * bhkv;
+  pl.ld_bytes = (long long)bh * pl.Sq_pad * 8;
+  pl.part_bytes = (long long)bhkv * s.split_parts * 2 * BR * pl.hd * 4;
+}
+
+// the plan of a shape: a few loops over its tiles, made afresh each launch
+BwdPlan plan_of(int B, int Sq, int Sk, int Hq, int Hkv, int hd, int causal,
+                int window, int q_offset) {
+  BwdPlan pl;
+  std::memset(&pl, 0, sizeof(pl));
+  pl.d.Sq = Sq;
+  pl.d.Sk = Sk;
+  pl.d.nq_tiles = (Sq + BM - 1) / BM;
+  pl.d.nk_tiles = (Sk + BN - 1) / BN;
+  pl.d.causal = causal != 0;
+  pl.d.window = window;
+  pl.d.q_offset = q_offset;
+  pl.B = B;
+  pl.Hq = Hq;
+  pl.Hkv = Hkv;
+  pl.hd = hd;
+  make_plan(pl);
+  return pl;
+}
+
+// the dq pass (which writes lse2 and D), the dk/dv pass (which reads them),
+// then the sum pass where a key block is split, on one stream
+template <int HD, int STAGES>
+int launch_bwd(const BwdParams& p, const BwdPlan& pl, cudaStream_t stream) {
+  const size_t smem = BwdSmem<HD, STAGES>::kBytes + 1024;   // + alignment
+  auto dq_kernel = flash_bwd_dq_kernel<HD, STAGES>;
+  auto dkdv_kernel = flash_bwd_dkdv_kernel<HD, STAGES>;
   static std::atomic<bool> raised_dq[kMaxDevices] = {};
   static std::atomic<bool> raised_dkdv[kMaxDevices] = {};
   int err = raise_smem(dq_kernel, smem, raised_dq);
   if (!err) err = raise_smem(dkdv_kernel, smem, raised_dkdv);
   if (err) return err;
-  dq_kernel<<<dim3((unsigned)(B * p.Hq), (unsigned)p.nq_tiles), kThreads,
+  dq_kernel<<<dim3((unsigned)(pl.B * pl.Hq), (unsigned)pl.nqb), kBwdThreads,
               smem, stream>>>(p);
-  const cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dkdv_kernel<<<dim3((unsigned)(B * p.Hkv), (unsigned)p.nk_tiles), kThreads,
-                smem, stream>>>(p);
+  dkdv_kernel<<<(unsigned)pl.dkdv_blocks, kBwdThreads, smem, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || pl.sched.n_split == 0) return (int)e;
+  flash_bwd_sum_kernel<HD><<<dim3((unsigned)(pl.sched.n_split
+                                             * (BR / kSumRows)),
+                                  (unsigned)p.bhkv), 256, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
-
 }  // namespace
 
 // C interface (loaded with ctypes).  Strides are in elements; the head dim
@@ -1151,14 +1486,42 @@ extern "C" int flash_attention_fwd_launch(
                   : launch<128, 2, 2>(p, B * Hq, s);
 }
 
+// The backward's plan (C interface, loaded with ctypes): for a shape,
+// fills out[0 .. n_out) with, in order, the scratch bytes
+// flash_attention_bwd_launch needs (`dd`), the SMs the plan assumes, the dq
+// pass's blocks, items and heaviest block (items), the dk/dv pass's the
+// same, its chunk bound T, its split key blocks, their partial slots, the
+// sum pass's blocks, and the key blocks.  Needs no card.  Returns 0, or
+// cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int flash_attention_bwd_plan(int B, int Sq, int Sk, int Hq,
+                                        int Hkv, int hd, int causal,
+                                        int window, int q_offset,
+                                        long long* out, int n_out) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv
+      || (hd != 64 && hd != 128))
+    return (int)cudaErrorInvalidValue;
+  const BwdPlan pl = plan_of(B, Sq, Sk, Hq, Hkv, hd, causal, window,
+                             q_offset);
+  const long long v[] = {pl.ld_bytes + pl.part_bytes, kPlanSms, pl.dq_blocks,
+                         pl.dq_items, pl.dq_heaviest, pl.dkdv_blocks,
+                         pl.dkdv_items, pl.dkdv_heaviest, pl.chunk,
+                         pl.sched.n_split, pl.sched.split_parts,
+                         pl.sum_blocks, pl.nkb};
+  for (int i = 0; i < n_out && i < (int)(sizeof(v) / sizeof(v[0])); ++i)
+    out[i] = v[i];
+  return 0;
+}
+
 // The backward (C interface, loaded with ctypes).  q, k, v, o and dout as
 // the forward takes them (TMA's rules for q, k, v and dout; o and dout are
 // read 16 bytes at a time, so their strides are multiples of 8 elements
-// too); lse: the forward's, B*Hq*Sq f32; dd: B*Hq*Sq f32 scratch for D;
-// dq, dk, dv: bf16 in q's and k's shapes, each written whole.  Every query
-// row must see at least one key.  Launches the dq pass, then the dk/dv
-// pass, on `stream`; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue as the forward does.
+// too); lse: the forward's, B*Hq*Sq f32; dd: scratch of the bytes
+// flash_attention_bwd_plan gives, 16-byte aligned (each query row's lse2
+// and D, then the split key blocks' partials); dq, dk, dv: bf16 in q's and
+// k's shapes, each written whole.  Every query row must see at least one
+// key.  Launches the dq pass, the dk/dv pass and, where the plan splits a
+// key block, the sum pass, on `stream`; returns cudaGetLastError() (0 =
+// launched), or cudaErrorInvalidValue as the forward does.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dd, void* dq, void* dk,
@@ -1175,6 +1538,7 @@ extern "C" int flash_attention_bwd_launch(
   if (B <= 0 || Sq <= 0) return 0;
   if ((hd != 64 && hd != 128) || Sk <= 0 || Hkv <= 0 || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
+  if ((Sq + BR - 1) / BR > 65535) return (int)cudaErrorInvalidValue;
   BwdParams p;
   int err = bind_context();
   if (!err) err = make_map(&p.tq, q, B, Sq, Hq, hd, q_sb, q_ss, q_sh);
@@ -1182,33 +1546,33 @@ extern "C" int flash_attention_bwd_launch(
   if (!err) err = make_map(&p.tv, v, B, Sk, Hkv, hd, v_sb, v_ss, v_sh);
   if (!err) err = make_map(&p.tdo, dout, B, Sq, Hq, hd, do_sb, do_ss, do_sh);
   if (err) return err;
+  const BwdPlan pl = plan_of(B, Sq, Sk, Hq, Hkv, hd, causal, window,
+                             q_offset);
   p.o = static_cast<const __nv_bfloat16*>(o);
   p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.do_sb = do_sb; p.do_ss = do_ss; p.do_sh = do_sh;
   p.lse = static_cast<const float*>(lse);
-  p.dd = static_cast<float*>(dd);
+  p.ld = static_cast<float2*>(dd);
+  p.part = reinterpret_cast<float*>(static_cast<char*>(dd) + pl.ld_bytes);
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
   p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
-  p.Sq = Sq; p.Sk = Sk; p.Hq = Hq; p.Hkv = Hkv; p.G = Hq / Hkv;
-  p.nq_tiles = (Sq + BM - 1) / BM;
-  p.nk_tiles = (Sk + BN - 1) / BN;
-  if (p.nq_tiles > 65535 || p.nk_tiles > 65535)
-    return (int)cudaErrorInvalidValue;
-  p.causal = causal; p.window = window; p.q_offset = q_offset;
+  p.d = pl.d;
+  p.Hq = Hq; p.Hkv = Hkv; p.G = Hq / Hkv; p.bhkv = B * Hkv;
+  p.nqb = pl.nqb; p.Sq_pad = pl.Sq_pad;
   p.scale = 1.f / sqrtf((float)hd);
   p.scale_log2 = p.scale * LOG2E;
   p.softcap = softcap;
   p.cap_in = softcap > 0.f ? p.scale / softcap : 0.f;
   p.cap_out = softcap * LOG2E;
+  p.sched = pl.sched;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // ring depth 2 for both head dims (48 KB of shared memory at hd 64, 96 KB
-  // at hd 128); 2 blocks an SM at hd 64 (at most 204 registers a thread),
-  // 1 at hd 128 (dK and dV alone hold 128 accumulators a thread)
-  return hd == 64 ? launch_bwd<64, 2, 2>(p, B, s)
-                  : launch_bwd<128, 2, 1>(p, B, s);
+  // ring depth 4 at hd 64 (99 KB of shared memory), 3 at hd 128 (163 KB);
+  // one block an SM, its consumers at up to 240 registers a thread
+  return hd == 64 ? launch_bwd<64, 4>(p, pl, s)
+                  : launch_bwd<128, 3>(p, pl, s);
 }

@@ -5,7 +5,7 @@ the hand-written Hopper kernels (``kernel.cu``: bf16, head dim 64 or 128;
 TMA copies into an mbarrier ring, products on warpgroup MMA) or raises;
 there is no fallback.  ``launches`` counts the forward kernel's launches,
 ``bwd_launches`` the backward's (callers may reset either to 0).  The
-kernels pick their own 64 x 64 tiles, so unlike the Pallas wrapper these
+kernels pick their own tiles, so unlike the Pallas wrapper these
 take no block sizes.  k and v may be strided views (slices of one fused
 tensor, say): the kernels' tensor maps take any strides that are multiples
 of 8 elements over a contiguous head dim.
@@ -13,8 +13,10 @@ of 8 elements over a contiguous head dim.
 ``flash_attention_vjp`` makes it differentiable.  On the card its forward
 is ``flash_attention_fwd_lse`` (the kernel, which also writes each row's
 log-sum-exp) and its backward ``flash_attention_bwd``: two kernel passes,
-dq per q tile and dk, dv per k tile with a kv head's G query heads summed
-in the block, no atomics, so a launch repeats bit for bit.  On the CPU it
+dq per 128-row q block and dk, dv per 128-key block with a kv head's G
+query heads summed in the block, and a short third pass that adds the
+partials of a key block the schedule splits over several blocks
+(``bwd_plan``); no atomics, so a launch repeats bit for bit.  On the CPU it
 is the reference's own ``_fa_bwd``: the plain forward, and autograd
 through the port's blocked ``models/layers.py::flash_attention_xla``
 recomputed from (q, k, v).
@@ -44,16 +46,31 @@ HEAD_DIMS = (64, 128)
 #: log2(e): the kernel's log-sum-exp is this times the natural one
 LOG2E = 1.4426950408889634
 
+#: what ``bwd_plan`` reports, in the C function's order: the scratch the
+#: backward needs; the SMs the plan assumes (an H100 SXM's, whatever the
+#: card); per pass its blocks, its items (a block's steps: a 64-key tile
+#: for 128 queries in the dq pass, a (query head, 64-row q tile) for 128
+#: keys in the dk/dv pass) and its heaviest block; the dk/dv pass's chunk
+#: bound, the key blocks it splits, their partial slots a kv head, the sum
+#: pass's blocks and the key blocks
+PLAN_KEYS = ("scratch_bytes", "sms", "dq_blocks", "dq_items", "dq_heaviest",
+             "dkdv_blocks", "dkdv_items", "dkdv_heaviest", "chunk",
+             "split_key_blocks", "partial_slots", "sum_blocks", "key_blocks")
+
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
 def _kernel(name: str = "fwd"):
-    """The C launch function of the forward (``fwd``) or backward
-    (``bwd``)."""
+    """The C function of the forward (``fwd``), the backward (``bwd``) or
+    the backward's plan (``plan``)."""
     fn = _fns.get(name)
     if fn is None:
         lib = build.library("flash_attention")
-        if name == "fwd":
+        if name == "plan":
+            fn = lib.flash_attention_bwd_plan
+            fn.argtypes = [ctypes.c_int] * 9 + [
+                ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+        elif name == "fwd":
             fn = lib.flash_attention_fwd_launch
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                            + [ctypes.c_longlong] * 12)
@@ -61,11 +78,25 @@ def _kernel(name: str = "fwd"):
             fn = lib.flash_attention_bwd_launch
             fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                            + [ctypes.c_longlong] * 24)
-        fn.argtypes += [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                        ctypes.c_int, ctypes.c_void_p]
+        if name != "plan":
+            fn.argtypes += [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def bwd_plan(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int, *,
+             causal: bool = True, window: int = 0,
+             q_offset: int = 0) -> dict:
+    """The backward kernel's schedule for a shape, as ``PLAN_KEYS`` names
+    it: the kernel library's own planner, which depends on the shape alone
+    (building the library needs ``nvcc``)."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    err = _kernel("plan")(B, Sq, Sk, Hq, Hkv, hd, int(causal), int(window),
+                          int(q_offset), out, len(PLAN_KEYS))
+    build.check(err, "flash_attention_bwd_plan")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def _tma_ready(t: torch.Tensor) -> bool:
@@ -198,8 +229,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dv = empty_unfilled(v.shape, v.dtype, v.device)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    dd = empty_unfilled((B, Hq, Sq), torch.float32, q.device)
     with torch.cuda.device(q.device):
+        # each query row's (lse2, D), then the partials of split key blocks
+        nbytes = bwd_plan(B, Sq, Sk, Hq, Hkv, hd, causal=causal,
+                          window=window, q_offset=q_offset)["scratch_bytes"]
+        dd = empty_unfilled((nbytes // 4,), torch.float32, q.device)
         err = _kernel("bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dd.data_ptr(), dq.data_ptr(),

@@ -296,6 +296,18 @@ def test_rglru_scan_repeats_bit_for_bit_in_deterministic_mode(cuda):
     (1, 65, 65, 3, 3, 64, 0, 0.0, 0),           # G 1, a row past a tile
     (2, 200, 200, 4, 1, 128, 48, 30.0, 0),      # window and softcap, hd 128
     (1, 100, 300, 7, 1, 128, 0, 0.0, 200),      # q_offset, G 7
+    # the 128-row blocks' edges: the second 64-row half holds one row (Sk
+    # 65) or 8 of 64 (Sk 200, the second key block)
+    (1, 65, 65, 2, 2, 128, 0, 0.0, 0),
+    (2, 200, 200, 7, 1, 64, 0, 0.0, 0),         # and G 7
+    # a window of 40: q tile 2 visits key block 0 but sees no key of its
+    # first half, so that warpgroup has no visible query there; G 1 with a
+    # softcap at hd 128
+    (1, 256, 256, 3, 1, 64, 40, 0.0, 0),
+    (2, 384, 384, 2, 2, 128, 40, 20.0, 0),
+    # few blocks: the schedule cuts every key block into runs of at most 5
+    # items and sums their partials (hd 64, G 4)
+    (1, 1024, 1024, 8, 2, 64, 0, 0.0, 0),
 ])
 def test_flash_attention_bwd_kernel_within_tolerance(cuda, B, Sq, Sk, Hq,
                                                      Hkv, hd, window, cap,
@@ -329,13 +341,19 @@ def test_flash_attention_bwd_kernel_within_tolerance(cuda, B, Sq, Sk, Hq,
             y.abs().max())
 
 
-def test_flash_attention_bwd_kernel_repeats_bit_for_bit(cuda):
-    """No atomics: two launches at smollm's train shape give the same
-    bits in dq, dk and dv."""
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", [
+    (4, 2048, 9, 3, 64),        # smollm's train step
+    (4, 1024, 24, 8, 64),       # granite's
+    (1, 512, 32, 8, 128),       # qwen3-4b's heads: split key blocks summed
+])
+def test_flash_attention_bwd_kernel_repeats_bit_for_bit(cuda, B, S, Hq, Hkv,
+                                                        hd):
+    """No atomics: two launches give the same bits in dq, dk and dv, at
+    the three shapes the path times (the sum pass's fixed order too)."""
     g = torch.Generator(device=cuda).manual_seed(1)
     q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
-                   for s in [(4, 2048, 9, 64), (4, 2048, 3, 64),
-                             (4, 2048, 3, 64), (4, 2048, 9, 64)])
+                   for s in [(B, S, Hq, hd), (B, S, Hkv, hd),
+                             (B, S, Hkv, hd), (B, S, Hq, hd)])
     o, lse = attn_ops.flash_attention_fwd_lse(q, k, v)
     first = attn_ops.flash_attention_bwd(q, k, v, o, lse, do)
     second = attn_ops.flash_attention_bwd(q, k, v, o, lse, do)

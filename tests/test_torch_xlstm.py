@@ -223,10 +223,13 @@ def test_bf16_distance_from_f32_stays_within_twice_the_reference():
     the same weights (the reference's bf16 ``key(0)`` parameters, cast),
     smoke config, B 2, S 128.  The f32 runs agree within 1e-5 of the
     logits' scale.  The port's bf16 distance is larger than the
-    reference's (ROADMAP Queue 3: 1.27x here, 0.0463 against 0.0402 at
-    full size, B 1, S 128, ``tools/xlstm_bf16_distance.py``); this pins
-    it under 2x the reference's until the cause is found, when the bound
-    becomes 1x."""
+    reference's (1.27x here, 0.0463 against 0.0402 at full size, B 1, S
+    128, ``tools/xlstm_bf16_distance.py``).  That 1.27x is XLA's excess
+    precision (``--xla_allow_excess_precision``, on by default): XLA drops
+    bf16 round trips inside its fusions, where the port rounds at every
+    op the reference's program names.  With the flag off the two
+    packages' bf16 logits agree (the test below); this pins the gap
+    under the default flag below 2x."""
     cfg = get_smoke_config(ARCH)
     tokens = np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 128),
                                                dtype=np.int32)
@@ -250,6 +253,70 @@ def test_bf16_distance_from_f32_stays_within_twice_the_reference():
     ref_dist = float(np.abs(r16 - r32).max()) / scale
     port_dist = float(np.abs(t16 - t32).max()) / scale
     assert 0 < ref_dist and port_dist <= 2 * ref_dist, (port_dist, ref_dist)
+
+
+# The reference's smoke prefill in bf16 and f32 under the flags the test
+# passes; writes the tokens, the f32 parameters and both logits to argv[1]
+_REF_PREFILL = r"""
+import dataclasses, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_smoke_config
+from repro.models.api import build_model
+
+cfg = get_smoke_config("xlstm_350m")
+tokens = np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 128),
+                                           dtype=np.int32)
+host = {k: np.asarray(jnp.asarray(v, jnp.float32))
+        for k, v in build_model(cfg).init(jax.random.key(0)).items()}
+logits = {}
+for dt in ("bfloat16", "float32"):
+    api = build_model(dataclasses.replace(cfg, dtype=dt))
+    out, _ = jax.jit(api.prefill)({k: jnp.asarray(v, dt)
+                                   for k, v in host.items()},
+                                  {"tokens": tokens})
+    logits[dt] = np.asarray(jnp.asarray(out, jnp.float32))
+np.savez(sys.argv[1], tokens=tokens, r16=logits["bfloat16"],
+         r32=logits["float32"], **{"param/" + k: v for k, v in host.items()})
+print("OK")
+"""
+
+
+def test_bf16_prefill_matches_the_reference_without_excess_precision(
+        tmp_path):
+    """The gap above is the reference's, not the port's: with XLA's
+    excess precision off (``XLA_FLAGS=--xla_allow_excess_precision=false``,
+    read once when the backend starts, so the reference runs in a fresh
+    process), the reference rounds bf16 where its program says, and the
+    port's bf16 prefill logits (smoke config, B 2, S 128, the same
+    parameters) match it within 1e-6 of the f32 logits' scale (reading:
+    8.0e-8; 9.4e-4 under the default flag)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    out = tmp_path / "ref.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(repo / "src"),
+               XLA_FLAGS="--xla_allow_excess_precision=false")
+    res = subprocess.run([sys.executable, "-c", _REF_PREFILL, str(out)],
+                         env=env, cwd=repo, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0 and res.stdout.strip().endswith("OK"), \
+        res.stderr[-4000:]
+    with np.load(out) as z:
+        tokens, r16, r32 = z["tokens"], z["r16"], z["r32"]
+        host = {k[len("param/"):]: z[k] for k in z.files
+                if k.startswith("param/")}
+    tapi = torch_build_model(dataclasses.replace(torch_smoke_config(ARCH),
+                                                 dtype="bfloat16"))
+    tp = params_from_jax({k: np.asarray(jnp.asarray(v, "bfloat16"))
+                          for k, v in host.items()}, device="cpu")
+    with torch.no_grad():
+        t16, _ = tapi.prefill(tp, {"tokens": torch.from_numpy(tokens)})
+    scale = float(np.abs(r32).max())
+    gap = float(np.abs(rec.np_(t16) - r16).max()) / scale
+    assert gap <= 1e-6, gap
 
 
 @pytest.mark.parametrize("P", [7, 130])
