@@ -11,7 +11,10 @@ served at full size and trained at 2 layers; the rest of the dense
 family, qwen3-4b and qwen2-vl-7b served through the flash kernel at head
 dim 128 and gemma2-2b served past its 4,096-token window; and the
 recurrent families' training, recurrentgemma-9b at 3 layers through the
-scan's gradient and xlstm-350m served, restarted and trained at full size.
+scan's gradient and xlstm-350m served, restarted and trained at full size;
+and the last two families: whisper-base (encoder-decoder) served,
+restarted and trained at full size, kimi-k2 served at one full-width layer
+and trained under Adafactor; and the quickstart example.
 
   device   the card's name and power limit (nvidia-smi);
   build    the hand-written kernels, compiled from this checkout's sources;
@@ -126,18 +129,46 @@ scan's gradient and xlstm-350m served, restarted and trained at full size.
   xlstm_train  xlstm-350m at full size, B 4, S 512: 4 steps and steps 1-2
            again bit-equal; then runs A, B and C as in ``train`` at 2 layers
            (one mLSTM/sLSTM pair at full width), C bit-exact with A.
+  whisper_serve  whisper-base at full size (seeded bf16 weights) through
+           the launcher's ``serve_batch``: B 4, 1,500 encoder frames, a
+           prompt of 32 tokens, 32 decode steps; every attention on the
+           blocked plain path (as the reference), so no kernel launches; a
+           repeated prefill bit-equal; decode steps against longer
+           prefills in bf16 and in f32; a prefill of frames alone (BOS).
+  whisper_state  its cache (k, v, the cross K/V at 1,500 frames, length)
+           saved as N=4 ranks, restored 4-to-1 onto the card bit for bit;
+           8 decode steps from it give the served tokens.
+  whisper_train  whisper-base at full size at its published contexts
+           (decoder 448, encoder 1,500 frames, seeded), B 4, remat: 4 steps
+           and steps 1-2 again bit-equal; then runs A, B and C as in
+           ``train``, C bit-exact with A.
+  kimi_serve  kimi-k2 at full width, depth cut to 1 of 61 layers (384
+           experts top-8, 19.4 G parameters), the flash kernel at hd 128
+           and G 8 and ``moe_ffn_ep`` (counted): B 4, prompt 512, 32 decode
+           steps; the flash forward at its heads against attention_ref
+           beside SDPA; the logits against naive attention; the EP layer
+           against the dense oracle; a repeated prefill bit-equal; its KV
+           cache 4-to-1, bit for bit, and 8 decode steps from it.
+  kimi_train  one full-width layer with the experts cut to 64, Adafactor,
+           B 4, S 1,024, remat: 4 steps and steps 1-2 again bit-equal, the
+           state's slots those of its specs; then runs A, B and C of an
+           Adafactor state at the smoke config, C bit-exact with A.
+  quickstart  the port of ``examples/quickstart.py`` on the card: two
+           tensors saved from 4 ranks (ckpt_pack) and loaded on 3 with
+           another partition, bit for bit on the card.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of a path that never launched fails the run (the fem,
-postprocess and xlstm_serve paths run no kernel: their counts are
-reported).  Every phase prints one JSON line; a failing phase raises and
-the script exits non-zero.
+postprocess, xlstm_serve and whisper_serve paths and whisper_train's
+repeated steps run no kernel: their counts are reported).  Every phase
+prints one JSON line, with its seconds; a failing phase raises and the
+script exits non-zero.
 Before the last line come the {"kernels": [...]} line (``launches`` summed
 over the paths that run the kernel) and the card's name and power limit;
 the last line is {"ok": true, "device": {...}}.  Needs one CUDA card (80 GB:
-the 9.4 B-parameter model is 18.8 GB in bf16, recurrentgemma's 3-layer train
-state 17 GB; each model is freed before the next is seeded) and the
-repository around it; imports nothing of JAX.
+kimi-k2's one layer is 38.8 GB in bf16, seeded through a 22.5 GB f32
+draw; each model is freed before the next is seeded) and the repository
+around it; imports nothing of JAX.
 
     python3 chip_smoke.py [--kernels-only]
 
@@ -193,9 +224,11 @@ LSE_TOL = 1e-3
 # path against naive: smollm 0.0052 / 0.0047, granite 0.0058 / 0.0048,
 # qwen3-4b 0.0211 / 0.0221, qwen2-vl-7b 0.0543 / 0.0494 (each bf16 path
 # 0.046-0.049 from the same weights in f32), gemma2-2b (its dispatch is the
-# blocked path) 0.0143; each limit is 1.5-2x the larger reading
+# blocked path) 0.0143, kimi-k2 at 1 layer 0.0030 / 0.0032; each limit is
+# 1.5-2x the larger reading
 LOGITS_RTOL = {"smollm-135m": 0.01, "granite-moe-3b-a800m": 0.01,
-               "qwen3-4b": 0.035, "qwen2-vl-7b": 0.08, "gemma2-2b": 0.025}
+               "qwen3-4b": 0.035, "qwen2-vl-7b": 0.08, "gemma2-2b": 0.025,
+               "kimi-k2-1t-a32b": 0.006}
 # |kernel - plain| <= SCAN_ATOL + SCAN_RTOL * |plain| for the RG-LRU scan:
 # tests/test_kernels.py's f32 tolerance of the Pallas kernel against its
 # oracle (the kernel runs the sequential FMA chain, the plain version a
@@ -338,6 +371,55 @@ XLSTM_STATE_B, XLSTM_STATE_DECODE = 2, 8
 XLSTM_TRAIN_B, XLSTM_TRAIN_S = 4, 512
 XLSTM_TRAIN_STEPS, XLSTM_REPEAT_STEPS = 4, 2
 XLSTM_RESUME_LAYERS = 2
+# whisper-base at full size (83.2 M parameters, seeded bf16): B 4, a
+# decoder prompt of 32 tokens over 1,500 encoder frames (the config's
+# encoder_seq, 30 s of audio), 32 decode steps through the launcher's
+# serve_batch; decode step g against one prefill of the prompt and g
+# tokens within WHISPER_RTOL of the logits' scale, same argmax (bf16: the
+# two paths round at other places over 6 decoder layers; the hybrid's
+# 0.05), and in f32 for the same weights within WHISPER_F32_RTOL
+WHISPER_B, WHISPER_P, WHISPER_G = 4, 32, 32
+WHISPER_RTOL = 0.05
+WHISPER_F32_RTOL = 1e-4
+# its serving cache (k, v at P + G slots, the cross K/V at 1,500 frames,
+# length) saved as 4 ranks, restored on this card; WHISPER_STATE_DECODE
+# decode steps from it
+WHISPER_STATE_DECODE = 8
+# trained at full size at its published contexts (decoder 448 tokens,
+# encoder 1,500 frames), B 4, AdamW, remat: 4 steps and steps 1-2 again
+# bit-equal; then runs A, B and C as in ``train`` at WHISPER_RESUME_LAYERS
+# (encoder and decoder layers; None: the full 6 + 6)
+WHISPER_TRAIN_B, WHISPER_TRAIN_S = 4, 448
+WHISPER_TRAIN_STEPS, WHISPER_REPEAT_STEPS = 4, 2
+WHISPER_RESUME_LAYERS = None
+# kimi-k2 at full width with its depth cut from 61 layers to 1 (384
+# experts top-8, d_ff_expert 2,048, 64 heads over 8 kv heads at hd 128,
+# untied vocabulary 163,840: 19.4 G parameters, 38.8 GB of seeded bf16),
+# attention through the flash kernel, every MoE layer ``moe_ffn_ep``:
+# B 4, prompt 512, 32 decode steps; the EP layer against the dense oracle
+# on KIMI_LAYER_B x KIMI_LAYER_S tokens (the oracle's expert buffers at
+# capacity factor E are [E, B, S * top_k, D]); its KV cache 4 -> 1 and
+# KIMI_STATE_DECODE decode steps from it
+KIMI_SERVE_LAYERS = 1
+KIMI_B, KIMI_P, KIMI_G = 4, 512, 32
+KIMI_LAYER_B, KIMI_LAYER_S = 1, 32
+KIMI_STATE_DECODE = 8
+# trained with Adafactor at 1 layer of full width with the experts cut
+# from 384 to KIMI_TRAIN_EXPERTS (top-8 and every width kept: 384 experts'
+# parameters and gradients alone are 67.6 GB), B 4, S 1,024, remat: 4
+# steps and steps 1-2 again bit-equal; the kill and resume of an Adafactor
+# state at kimi-k2's smoke config (the cut state, about 10.6 GB, would
+# take some 15 minutes on the general restore path)
+KIMI_TRAIN_EXPERTS = 64
+KIMI_TRAIN_B, KIMI_TRAIN_S = 4, 1024
+KIMI_TRAIN_STEPS, KIMI_REPEAT_STEPS = 4, 2
+# Adafactor's step is relative, lr x RMS(p) (the reference's ``scale``),
+# and its first steps move each row of a matrix nearly as one, so the
+# logits move with the width: at d_model 7,168 base 0.005 (larger rates
+# overshoot within 4 steps), at the smoke config's 64 base 0.1 (smaller
+# ones do not move its loss past the batches' noise in 6 steps)
+KIMI_TRAIN_LR, KIMI_RESUME_LR = 0.005, 0.1
+KIMI_RESUME_B, KIMI_RESUME_S = 4, 64
 
 
 def emit(obj) -> None:
@@ -391,6 +473,32 @@ def host_ms(fn, iters: int = 100, rounds: int = 5) -> dict:
             "enqueue_min_ms": min(enqueue),
             "back_to_back_ms": float(np.median(span)),
             "back_to_back_min_ms": min(span)}
+
+
+def _counter():
+    """(zero, read, launches): ``zero()`` sets every kernel's launch count
+    to 0, ``read()`` returns the counts and adds them to ``launches``."""
+    from repro_torch.kernels.ckpt_pack import ops as pack_ops
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+
+    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0,
+                "flash_attention_bwd": 0}
+
+    def zero():
+        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
+        attn_ops.bwd_launches = 0
+
+    def read():
+        got = {"ckpt_pack": pack_ops.launches,
+               "flash_attention": attn_ops.launches,
+               "rglru_scan": scan_ops.launches,
+               "flash_attention_bwd": attn_ops.bwd_launches}
+        for k, n in got.items():
+            launches[k] += n
+        return got
+
+    return zero, read, launches
 
 
 # ------------------------------------------------------------------ device
@@ -679,7 +787,8 @@ def check_flash_attention_bwd(cfg) -> dict:
     """The attention backward kernel (``flash_attention_bwd``, from the
     forward kernel's o and log-sum-exp) against ``attention_bwd_ref`` on
     the same tensors, at smollm's train step, granite's, qwen3-4b's heads
-    (hd 128) and a ragged case with window, softcap and q_offset; the
+    (hd 128), a ragged case with window, softcap and q_offset, and
+    kimi_train's (hd 128, 64 query heads over 8); the
     forward's log-sum-exp against ``attention_lse_ref``'s; two launches
     bit-equal; its time beside its bound, the plain version's and SDPA's
     backward's, the forward's time with and without the log-sum-exp, and,
@@ -698,6 +807,7 @@ def check_flash_attention_bwd(cfg) -> dict:
                            dtype=torch.float32).to(torch.bfloat16)
 
     qwen = get_config("qwen3_4b")
+    kimi = get_config("kimi_k2_1t_a32b")
     cases = [
         # B, Sq, Sk, Hq, Hkv, hd, q_offset, window, softcap
         (TRAIN_B, TRAIN_S, TRAIN_S, cfg.num_heads, cfg.num_kv_heads,
@@ -706,6 +816,8 @@ def check_flash_attention_bwd(cfg) -> dict:
         (1, 512, 512, qwen.num_heads, qwen.num_kv_heads, qwen.head_dim_,
          0, 0, 0.0),                                     # hd 128
         (2, 333, 433, 9, 3, 64, 100, 256, 50.0),         # ragged, all three
+        (KIMI_TRAIN_B, KIMI_TRAIN_S, KIMI_TRAIN_S, kimi.num_heads,
+         kimi.num_kv_heads, kimi.head_dim_, 0, 0, 0.0),  # kimi_train, G 8
     ]
     results, worst = [], 0.0
     for B, Sq, Sk, Hq, Hkv, hd, qoff, win, cap in cases:
@@ -809,6 +921,8 @@ def check_flash_attention_bwd(cfg) -> dict:
                  cfg.head_dim_, plain=True)
     granite = timed(MOE_TRAIN_B, MOE_TRAIN_S, 24, 8, 64)
     hd128 = timed(1, 512, qwen.num_heads, qwen.num_kv_heads, qwen.head_dim_)
+    kimi_heads = timed(KIMI_TRAIN_B, KIMI_TRAIN_S, kimi.num_heads,
+                       kimi.num_kv_heads, kimi.head_dim_)
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "repro_torch/kernels/flash_attention/kernel.cu",
             "replaces": "src/repro/kernels/flash_attention/ops.py:63 "
@@ -818,6 +932,7 @@ def check_flash_attention_bwd(cfg) -> dict:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "timed_at": main, "granite": granite, "hd128": hd128,
+            "kimi": kimi_heads,
             "tolerance": {"of_scale": ATTN_BWD_TOL, "lse": LSE_TOL},
             "cases": results}
 
@@ -1366,18 +1481,21 @@ def phase_hybrid_state(api, params, kept, store_dir: str, nranks: int,
             **line, "continued_tokens_identical": True}
 
 
-def decode_vs_prefill(api, params, tokens, kept, rtol: float) -> dict:
+def decode_vs_prefill(api, params, tokens, kept, rtol: float,
+                      extra=None) -> dict:
     """Row 0: the logits of decode step g (``kept["step_logits"][g]``, for
     g in CONSISTENCY_STEPS) against one prefill of the prompt plus the
-    first g generated tokens, within ``rtol`` of the largest prefill logit
-    and with the same argmax.  ``failed`` lists the cases outside."""
+    first g generated tokens (and row 0's other inputs ``extra``, e.g. an
+    encoder's frames), within ``rtol`` of the largest prefill logit and
+    with the same argmax.  ``failed`` lists the cases outside."""
     out = kept["tokens"]
     dev = params["embed"].device
     results = []
     for g in CONSISTENCY_STEPS:
         seq = torch.cat([tokens[0], torch.from_numpy(out[0, :g]).to(dev)])
         with torch.inference_mode():
-            want, _ = api.prefill(params, {"tokens": seq[None]})
+            want, _ = api.prefill(params, {"tokens": seq[None],
+                                           **(extra or {})})
         want = want[0].float()
         got = kept["step_logits"][g]
         diff = float((got - want).abs().max())
@@ -1440,9 +1558,12 @@ def check_flash_vjp(cfg, device) -> dict:
 
 
 def kill_and_resume(api, B: int, S: int, store_dirs, device,
-                    per_step: dict | None = None, keep=()) -> tuple:
+                    per_step: dict | None = None, keep=(), opt=None,
+                    data=None, lr: float = TRAIN_LR) -> tuple:
     """Runs A, B and C (see the module docstring) of ``api`` at batch B and
-    sequence S through the TorchTrainer in deterministic mode, with the
+    sequence S through the TorchTrainer in deterministic mode, under
+    ``opt`` (AdamW by default, under warmup_cosine(``lr``)) on the batches
+    of ``data`` (``SyntheticLM`` by default), with the
     launch counts at 0 just before each run and read just after: each
     kernel named in ``per_step`` must have launched that many times a step
     run, and ckpt_pack on every save.  Run C must end in A's state and
@@ -1452,8 +1573,6 @@ def kill_and_resume(api, B: int, S: int, store_dirs, device,
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.device import use_deterministic_algorithms
     from repro_torch.kernels.ckpt_pack import ops as pack_ops
-    from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.kernels.rglru_scan import ops as scan_ops
     from repro_torch.train import (AdamW, SimulatedPreemption, SyntheticLM,
                                    TorchTrainer, TrainerConfig,
                                    init_train_state, make_train_step,
@@ -1461,9 +1580,9 @@ def kill_and_resume(api, B: int, S: int, store_dirs, device,
 
     use_deterministic_algorithms()
     per_step = per_step or {}
-    opt = AdamW()
+    opt = opt or AdamW()
     step = make_train_step(
-        api, opt, functools.partial(warmup_cosine, base_lr=TRAIN_LR,
+        api, opt, functools.partial(warmup_cosine, base_lr=lr,
                                     warmup=TRAIN_WARMUP, total=TRAIN_STEPS),
         ShapeConfig("train", S, B, "train"))
     step_seconds, step_fn = [], step.fn
@@ -1480,7 +1599,7 @@ def kill_and_resume(api, B: int, S: int, store_dirs, device,
         return out
 
     step = dataclasses.replace(step, fn=timed_step)
-    data = SyntheticLM(api.cfg.vocab, S, B, seed=SEED)
+    data = data or SyntheticLM(api.cfg.vocab, S, B, seed=SEED)
 
     def trainer(store_dir, ckpt_every):
         return TorchTrainer(
@@ -1489,23 +1608,16 @@ def kill_and_resume(api, B: int, S: int, store_dirs, device,
             init_state_fn=lambda: init_train_state(
                 api, opt, torch.Generator(device=device).manual_seed(SEED)))
 
-    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0,
-                "flash_attention_bwd": 0}
+    zero, read, launches = _counter()
 
     def counted(run, steps_run, saves):
         """``run()`` with the counts at 0 just before and read just after;
         each kernel in ``per_step`` must have launched that many times a
         step run, ckpt_pack on every save."""
-        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
-        attn_ops.bwd_launches = 0
+        zero()
         per_save = []
         out = run(per_save)
-        got = {"ckpt_pack": pack_ops.launches,
-               "flash_attention": attn_ops.launches,
-               "rglru_scan": scan_ops.launches,
-               "flash_attention_bwd": attn_ops.bwd_launches}
-        for k, n in got.items():
-            launches[k] += n
+        got = read()
         for k, n in per_step.items():
             if got[k] != n * steps_run:
                 raise AssertionError(f"{k} launched {got[k]} times in "
@@ -1586,6 +1698,7 @@ def kill_and_resume(api, B: int, S: int, store_dirs, device,
     median = float(np.median(a_times[1:]))
     cfg = api.cfg
     return {"arch": cfg.arch, "layers": cfg.num_layers,
+            "optimizer": opt.name,
             "params": sum(t.numel() for k, t in ra["state"].items()
                           if k.startswith("params/")),
             "state_bytes": state_bytes, "batch": B, "seq": S,
@@ -2023,15 +2136,16 @@ def real_params(cfg, params) -> int:
                for name, t in params.items())
 
 
-def check_moe_layer(cfg, params, device) -> dict:
-    """Layer 0's MoE FFN at granite's width on the card: ``moe_ffn_ep`` (a
-    model axis of 1) against the dense one-hot oracle at capacity factor
-    E, where nothing drops, on seeded activations."""
+def check_moe_layer(cfg, params, device, B: int = MOE_LAYER_B,
+                    S: int = MOE_LAYER_S) -> dict:
+    """Layer 0's MoE FFN at the model's width on the card: ``moe_ffn_ep``
+    (a model axis of 1) against the dense one-hot oracle at capacity
+    factor E, where nothing drops, on B x S seeded activations."""
     from repro_torch.models import moe
     from repro_torch.train.step import ONE_DEVICE
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    x = torch.randn((MOE_LAYER_B, MOE_LAYER_S, cfg.d_model), generator=gen,
+    x = torch.randn((B, S, cfg.d_model), generator=gen,
                     device=device).to(torch.bfloat16)
     w = [params[k][0] for k in ("router", "we_gate", "we_up", "we_down")]
     kw = dict(top_k=cfg.moe.top_k, num_real=cfg.moe.num_experts,
@@ -2041,7 +2155,7 @@ def check_moe_layer(cfg, params, device) -> dict:
     torch.cuda.synchronize()
     diff = float((y_ep.float() - y_dn.float()).abs().max())
     scale = float(y_dn.float().abs().max())
-    line = {"tokens": MOE_LAYER_B * MOE_LAYER_S, "rtol": MOE_RTOL,
+    line = {"tokens": B * S, "rtol": MOE_RTOL,
             "max_abs_diff": diff, "max_abs_dense": scale,
             "aux_ep": float(aux_ep), "aux_dense": float(aux_dn)}
     if not torch.isfinite(y_ep).all() or diff > MOE_RTOL * scale:
@@ -2131,9 +2245,6 @@ def moe_paths(device, store_dir: str) -> dict:
     """The three MoE phases, each path with the launch counts at 0 just
     before it and read just after.  Returns the launches per kernel."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ckpt_pack import ops as pack_ops
-    from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.kernels.rglru_scan import ops as scan_ops
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import moe
     from repro_torch.models.api import build_model
@@ -2142,17 +2253,7 @@ def moe_paths(device, store_dir: str) -> dict:
     cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"),
                               attention_impl="pallas")
     api = build_model(cfg)
-    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0,
-                "flash_attention_bwd": 0}
-
-    def read():
-        got = {"ckpt_pack": pack_ops.launches,
-               "flash_attention": attn_ops.launches,
-               "rglru_scan": scan_ops.launches,
-               "flash_attention_bwd": attn_ops.bwd_launches}
-        for k, n in got.items():
-            launches[k] += n
-        return got
+    zero, read, launches = _counter()
 
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -2161,8 +2262,7 @@ def moe_paths(device, store_dir: str) -> dict:
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
         # ---- moe_serve: counts at 0 just before, read just after
-        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
-        attn_ops.bwd_launches = 0
+        zero()
         moe.calls = 0
         serve, kept = phase_moe_serve(api, params, tokens, device)
         serve["kernel_launches"] = read()
@@ -2181,8 +2281,7 @@ def moe_paths(device, store_dir: str) -> dict:
         emit(serve)
         # ---- moe_state: counts at 0 just before, read just after
         t0 = time.perf_counter()
-        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
-        attn_ops.bwd_launches = 0
+        zero()
         state = phase_moe_state(api, params, kept, store_dir, NRANKS, device)
         state["kernel_launches"] = read()
         if not state["kernel_launches"]["ckpt_pack"]:
@@ -2196,8 +2295,7 @@ def moe_paths(device, store_dir: str) -> dict:
     # ---- moe_train, outside inference mode (autograd needs it)
     t0 = time.perf_counter()
     tcfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
-    pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
-    attn_ops.bwd_launches = 0
+    zero()
     moe.calls = 0
     train = phase_moe_train(tcfg, device)
     train["layers_cut_from"] = cfg.num_layers
@@ -2370,27 +2468,10 @@ def dense_paths(device, store_dir: str) -> dict:
     next is seeded.  Returns the launches per kernel."""
     from repro_torch.configs import get_config
     from repro_torch.examples import serve_batched
-    from repro_torch.kernels.ckpt_pack import ops as pack_ops
-    from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.kernels.rglru_scan import ops as scan_ops
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models.api import build_model
 
-    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0,
-                "flash_attention_bwd": 0}
-
-    def zero():
-        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
-        attn_ops.bwd_launches = 0
-
-    def read():
-        got = {"ckpt_pack": pack_ops.launches,
-               "flash_attention": attn_ops.launches,
-               "rglru_scan": scan_ops.launches,
-               "flash_attention_bwd": attn_ops.bwd_launches}
-        for k, n in got.items():
-            launches[k] += n
-        return got
+    zero, read, launches = _counter()
 
     def seeded(arch):
         # as the serving launcher does: prefill attention through the
@@ -2481,13 +2562,17 @@ def dense_paths(device, store_dir: str) -> dict:
 
 # ------------------------------------------------------ recurrent training
 def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
-                 mesh=None) -> dict:
+                 mesh=None, opt=None, data=None,
+                 report_state: bool = False, lr: float = TRAIN_LR) -> dict:
     """``steps`` steps of ``make_train_step`` (sharded over ``mesh`` when one
-    is given) in deterministic mode from the seeded state (finite, falling
-    loss), the state after step ``repeat`` kept on the host; then steps
-    1..``repeat`` again from the same seed, bit-equal to it in every array
-    and every loss.  The launch counts are set to 0 by the caller just
-    before and read just after."""
+    is given) under ``opt`` (AdamW by default) in deterministic mode from
+    the seeded state (finite, falling loss) on the batches of ``data``
+    (``SyntheticLM`` by default), the state after step ``repeat`` kept on
+    the host, under warmup_cosine(``lr``, warmup TRAIN_WARMUP); then steps
+    1..``repeat`` again from the same seed, bit-equal
+    to it in every array and every loss.  ``report_state`` adds each
+    array's shape and dtype.  The launch counts are set to 0 by the caller
+    just before and read just after."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.device import use_deterministic_algorithms
     from repro_torch.distrib.rules import local_box
@@ -2496,10 +2581,11 @@ def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
     from repro_torch.train.step import shard_state
 
     use_deterministic_algorithms()
-    step = make_train_step(api, AdamW(), functools.partial(
-        warmup_cosine, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total=steps),
+    opt = opt or AdamW()
+    step = make_train_step(api, opt, functools.partial(
+        warmup_cosine, base_lr=lr, warmup=TRAIN_WARMUP, total=steps),
         ShapeConfig("train", S, B, "train"), mesh=mesh)
-    data = SyntheticLM(api.cfg.vocab, S, B, seed=SEED)
+    data = data or SyntheticLM(api.cfg.vocab, S, B, seed=SEED)
 
     def local(state):
         return state if mesh is None else {k: t.to_local()
@@ -2514,7 +2600,7 @@ def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
 
     def run(n):
         state = init_train_state(
-            api, AdamW(), torch.Generator(device=device).manual_seed(SEED))
+            api, opt, torch.Generator(device=device).manual_seed(SEED))
         if mesh is not None:
             state = shard_state(state, mesh, step.state_shardings)
         history, seconds, kept = [], [], None
@@ -2540,7 +2626,7 @@ def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
     again, again_history, _, _ = run(repeat)
     differ = [k for k in kept if not _same_bits(kept[k], again[k].cpu())]
     n_arrays = len(kept)
-    del again, kept
+    del again
     losses = [h["loss"] for h in history]
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"the loss is not finite and falling: {losses}")
@@ -2548,9 +2634,11 @@ def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
         raise AssertionError(f"two runs of steps 1-{repeat} from one seed "
                              f"differ in {differ or 'their losses'}")
     median = float(np.median(seconds[1:]))
+    shapes = {k: [list(t.shape), str(t.dtype).removeprefix("torch.")]
+              for k, t in kept.items()} if report_state else None
     return {"arch": api.cfg.arch, "layers": api.cfg.num_layers,
             "params": n_params, "state_bytes": state_bytes, "batch": B,
-            "seq": S, "remat": api.cfg.remat,
+            "seq": S, "remat": api.cfg.remat, "optimizer": opt.name,
             "deterministic": torch.are_deterministic_algorithms_enabled(),
             "losses": losses,
             "metrics": {k: [h[k] for h in history] for k in history[0]
@@ -2559,7 +2647,8 @@ def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
             "step_ms_median_2_on": median * 1e3,
             "tokens_per_s": B * S / median, "peak_memory_allocated": peak,
             "repeat_steps": repeat, "repeat_bit_equal_arrays": n_arrays,
-            "steps_run": steps + repeat}
+            "steps_run": steps + repeat,
+            **({"state_arrays": shapes} if report_state else {})}
 
 
 def slstm_share(api, params, batch) -> dict:
@@ -2592,29 +2681,37 @@ def slstm_share(api, params, batch) -> dict:
             "slstm_share_of_prefill": spent[0] / total}
 
 
-def xlstm_f32_reading(api, params, tokens) -> dict:
-    """The first decode step after a prefill of ``tokens`` [1, P] against
-    one prefill of P + 1, for the same weights cast to f32, within
-    XLSTM_F32_RTOL of the logits' scale and with the same argmax; and the
-    bf16 floor: the bf16 prefill of P + 1 against the f32 one."""
+def f32_decode_reading(api, params, batch, rtol: float) -> dict:
+    """Row 0 of ``batch`` (its ``tokens`` [1, P] and any other inputs, such
+    as an encoder's frames): the first decode step after a prefill of the
+    prompt against one prefill of the prompt and that token, for the same
+    weights in f32 (an f32 model: whisper's encoder casts its frames to
+    the model's dtype), within ``rtol`` of the logits' scale and with the
+    same argmax; and the bf16 floor: the bf16 prefill of P + 1 against the
+    f32 one."""
+    from repro_torch.models.api import build_model
+
+    api32 = build_model(dataclasses.replace(api.cfg, dtype="float32"))
     f32 = {k: v.float() for k, v in params.items()}
+    row = {k: v[:1] for k, v in batch.items()}
+    tokens = row["tokens"]
     P = tokens.shape[1]
-    first, cache = api.prefill(f32, {"tokens": tokens})
+    first, cache = api32.prefill(f32, row, P + 1)
     token = torch.argmax(first, -1).to(torch.int32)[:, None]
-    got, _ = api.decode_step(f32, cache, {"token": token, "pos": torch.full(
+    got, _ = api32.decode_step(f32, cache, {"token": token, "pos": torch.full(
         (1,), P, dtype=torch.int32, device=tokens.device)})
-    longer = {"tokens": torch.cat([tokens, token], dim=1)}
-    want, _ = api.prefill(f32, longer)
+    longer = {**row, "tokens": torch.cat([tokens, token], dim=1)}
+    want, _ = api32.prefill(f32, longer)
     bf16, _ = api.prefill(params, longer)
     scale = float(want.abs().max())
-    line = {"rtol": XLSTM_F32_RTOL,
+    line = {"rtol": rtol,
             "rel": float((got - want).abs().max()) / scale,
             "same_argmax": bool((got.argmax(-1) == want.argmax(-1)).all()),
             "bf16_prefill_rel_vs_f32": float((bf16.float() - want).abs()
                                              .max()) / scale}
-    if line["rel"] > XLSTM_F32_RTOL or not line["same_argmax"]:
-        raise AssertionError(f"xlstm decode disagrees with prefill in "
-                             f"f32: {line}")
+    if line["rel"] > rtol or not line["same_argmax"]:
+        raise AssertionError(f"{api.cfg.arch} decode disagrees with prefill "
+                             f"in f32: {line}")
     return line
 
 
@@ -2624,27 +2721,10 @@ def recurrent_paths(device, store_dirs) -> dict:
     (recurrentgemma-9b at 3 layers), ``xlstm_serve``, ``xlstm_state`` and
     ``xlstm_train`` (xlstm-350m).  Returns the launches per kernel."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ckpt_pack import ops as pack_ops
-    from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.kernels.rglru_scan import ops as scan_ops
     from repro_torch.launch.serve import decode_steps, prompt_batch
     from repro_torch.models.api import build_model
 
-    launches = {"ckpt_pack": 0, "flash_attention": 0, "rglru_scan": 0,
-                "flash_attention_bwd": 0}
-
-    def zero():
-        pack_ops.launches = attn_ops.launches = scan_ops.launches = 0
-        attn_ops.bwd_launches = 0
-
-    def read():
-        got = {"ckpt_pack": pack_ops.launches,
-               "flash_attention": attn_ops.launches,
-               "rglru_scan": scan_ops.launches,
-               "flash_attention_bwd": attn_ops.bwd_launches}
-        for k, n in got.items():
-            launches[k] += n
-        return got
+    zero, read, launches = _counter()
 
     # ---- hybrid_train: counts at 0 just before, read just after
     t0 = time.perf_counter()
@@ -2699,8 +2779,8 @@ def recurrent_paths(device, store_dirs) -> dict:
         serve.update(slstm_share(api, params, batch))
         serve["decode_vs_prefill"] = decode_vs_prefill(
             api, params, batch["tokens"], kept, XLSTM_RTOL)
-        serve["decode_vs_prefill_f32"] = xlstm_f32_reading(
-            api, params, batch["tokens"][:1])
+        serve["decode_vs_prefill_f32"] = f32_decode_reading(
+            api, params, batch, XLSTM_F32_RTOL)
         serve["phase_seconds"] = time.perf_counter() - t0
         emit(serve)
         if serve["decode_vs_prefill"]["failed"]:
@@ -2769,6 +2849,356 @@ def recurrent_paths(device, store_dirs) -> dict:
     return launches
 
 
+# ------------------------------------------- whisper, kimi-k2 and quickstart
+def frames_data(cfg, S: int, B: int):
+    """An encoder-decoder's train data: ``SyntheticLM``'s batches plus
+    ``enc_frames`` [B, Se, D] drawn from (SEED, step), normal with scale
+    0.5 as ``make_token_batch`` draws them (the trainer alone feeds zero
+    frames, as the reference's does, which leave the encoder without a
+    gradient)."""
+    from repro_torch.train import SyntheticLM
+
+    class FramesLM(SyntheticLM):
+        def batch(self, step: int) -> dict:
+            out = super().batch(step)
+            out["enc_frames"] = np.random.default_rng([SEED, step]).normal(
+                size=(self.global_batch, cfg.encoder_seq, cfg.d_model),
+                scale=0.5).astype(np.float32)
+            return out
+
+    return FramesLM(cfg.vocab, S, B, seed=SEED)
+
+
+def restart_cache(api, params, kept, store_dir: str, P: int, steps: int,
+                  device) -> dict:
+    """The served prefill's cache (``kept["cache"]``) saved as NRANKS ranks
+    and restored onto this card bit for bit (``save_restore``); ``steps``
+    decode steps from the restored cache must give the served tokens."""
+    from repro_torch.launch.serve import decode_steps
+
+    cache, out = kept["cache"], kept["tokens"]
+    line, restored = save_restore(
+        cache, api.abstract_cache(out.shape[0], cache["k"].shape[2]),
+        store_dir, NRANKS, device)
+    first = torch.from_numpy(out[:, :1].copy()).to(device)
+    with torch.inference_mode():
+        toks = decode_steps(api, params, restored, first, P, steps, device)
+    if not np.array_equal(torch.cat(toks, dim=1).cpu().numpy(),
+                          out[:, :steps + 1]):
+        raise AssertionError("decoding from the restored cache gave other "
+                             "tokens than the server")
+    return {"arrays": {k: [list(v.shape), str(v.dtype).removeprefix("torch.")]
+                       for k, v in cache.items()},
+            **line, "decode_steps_from_restored": steps,
+            "continued_tokens_identical": True}
+
+
+def whisper_bos_primed(api, params, frames) -> dict:
+    """A prefill of frames alone primes the decoder with a zero BOS
+    column: finite [B, V] logits and a cache of length 1."""
+    logits, cache = api.prefill(params, {"enc_frames": frames})
+    B = frames.shape[0]
+    if (logits.shape != (B, api.cfg.vocab) or not torch.isfinite(logits)
+            .all() or int(cache["length"]) != 1):
+        raise AssertionError(f"BOS-primed prefill: logits "
+                             f"{tuple(logits.shape)}, length "
+                             f"{int(cache['length'])}")
+    return {"batch": B, "length": 1, "finite": True,
+            "cache": {k: list(v.shape) for k, v in cache.items()}}
+
+
+def check_flash_at(B: int, S: int, Hq: int, Hkv: int, hd: int) -> dict:
+    """The flash forward kernel at one causal shape against
+    ``attention_ref`` (within ATTN_ATOL + ATTN_RTOL |plain|), its device
+    time beside SDPA's (cuDNN and FlashAttention-2; deterministic mode,
+    which the train phases leave on, is off while SDPA is timed: cuDNN's
+    attention refuses it) and its bound."""
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for shape in
+               ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    got = flash_attention(q, k, v, causal=True).float()
+    want = attention_ref(q, k, v, causal=True).float()
+    err = (got - want).abs()
+    bad = int((err > ATTN_ATOL + ATTN_RTOL * want.abs()).sum())
+    ops = 4 * B * Hq * hd * _pairs(S, S, 0, True, 0)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    t_ops, t_bytes = ops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        sdpa = {b.name: _sdpa(q, k, v, b) for b in (
+            SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION)}
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    line = {"shape": [B, S, S, Hq, Hkv, hd], "max_abs_err": float(err.max()),
+            "outside_tol": bad,
+            "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+            "sdpa_ms_by_backend": sdpa,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention outside tolerance at kimi's "
+                             f"heads: {line}")
+    return line
+
+
+def whisper_paths(device, store_dirs) -> dict:
+    """whisper-base's phases, each path with the launch counts at 0 just
+    before it and read just after: ``whisper_serve``, ``whisper_state``
+    (its cache 4 -> 1) and ``whisper_train`` (repeated steps at full size,
+    then the kill and resume).  Its attention is the blocked plain path,
+    as in the reference, so only ckpt_pack launches (in the saves).
+    Returns the launches per kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models.api import build_model
+
+    zero, read, launches = _counter()
+    # as the serving launcher sets it; the family ignores attention_impl
+    cfg = dataclasses.replace(get_config("whisper_base"),
+                              attention_impl="pallas")
+    api = build_model(cfg)
+    with torch.inference_mode():
+        # ---- whisper_serve: counts at 0 just before, read just after
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator(device=device).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        batch = prompt_batch(cfg, WHISPER_B, WHISPER_P, device)
+        step_logits = {}
+
+        def on_step(i, logits):
+            if i in CONSISTENCY_STEPS:
+                step_logits[i] = logits[0].float().clone()
+
+        zero()
+        serve, kept = phase_serve_batch("whisper_serve", api, params, batch,
+                                        WHISPER_G, device, on_step=on_step)
+        serve["kernel_launches"] = read()
+        kept["step_logits"] = step_logits
+        serve.update({"init_seconds": t_init,
+                      "encoder_layers": cfg.encoder_layers,
+                      "enc_frames": list(batch["enc_frames"].shape)})
+        serve.update(check_repeated_prefill(api, params, batch, kept,
+                                            WHISPER_P + WHISPER_G))
+        serve["decode_vs_prefill"] = decode_vs_prefill(
+            api, params, batch["tokens"], kept, WHISPER_RTOL,
+            extra={"enc_frames": batch["enc_frames"][:1]})
+        serve["decode_vs_prefill_f32"] = f32_decode_reading(
+            api, params, batch, WHISPER_F32_RTOL)
+        serve["bos_primed"] = whisper_bos_primed(api, params,
+                                                 batch["enc_frames"])
+        serve["phase_seconds"] = time.perf_counter() - t0
+        emit(serve)
+        if serve["decode_vs_prefill"]["failed"]:
+            raise AssertionError(f"whisper decode disagrees with prefill: "
+                                 f"{serve['decode_vs_prefill']['failed']}")
+
+        # ---- whisper_state: counts at 0 just before, read just after
+        t0 = time.perf_counter()
+        zero()
+        state = {"phase": "whisper_state", **restart_cache(
+            api, params, kept, store_dirs[0], WHISPER_P,
+            WHISPER_STATE_DECODE, device)}
+        state["kernel_launches"] = read()
+        state["cross_kv_bytes"] = sum(kept["cache"][k].numel() * 2
+                                      for k in ("xk", "xv"))
+        if not state["kernel_launches"]["ckpt_pack"]:
+            raise AssertionError("ckpt_pack never launched in whisper's "
+                                 "cache save")
+        state["phase_seconds"] = time.perf_counter() - t0
+        emit(state)
+        del params, kept, batch
+        torch.cuda.empty_cache()
+
+    # ---- whisper_train: full size, steps repeated; then the kill and
+    # resume; counts at 0 just before, read just after
+    t0 = time.perf_counter()
+    zero()
+    train = {"phase": "whisper_train", **repeat_train(
+        api, WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS,
+        WHISPER_REPEAT_STEPS, device,
+        data=frames_data(cfg, WHISPER_TRAIN_S, WHISPER_TRAIN_B))}
+    train["encoder_frames"] = cfg.encoder_seq
+    train["kernel_launches"] = read()
+    torch.cuda.empty_cache()
+    # A, B and C count each run's launches themselves (ckpt_pack on every
+    # save)
+    t1 = time.perf_counter()
+    rcfg = cfg if WHISPER_RESUME_LAYERS is None else dataclasses.replace(
+        cfg, encoder_layers=WHISPER_RESUME_LAYERS,
+        num_layers=WHISPER_RESUME_LAYERS)
+    train["resume"], _ = kill_and_resume(
+        build_model(rcfg), WHISPER_TRAIN_B, WHISPER_TRAIN_S, store_dirs[1:],
+        device, data=frames_data(rcfg, WHISPER_TRAIN_S, WHISPER_TRAIN_B))
+    for k, n in train["resume"]["total_launches"].items():
+        launches[k] += n
+    train["resume"]["encoder_layers"] = rcfg.encoder_layers
+    train["resume"]["phase_seconds"] = time.perf_counter() - t1
+    train["phase_seconds"] = time.perf_counter() - t0
+    emit(train)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kimi_paths(device, store_dirs) -> dict:
+    """kimi-k2's phases, each path with the launch counts at 0 just before
+    it and read just after: ``kimi_serve`` (one layer at full width, its KV
+    cache 4 -> 1) and ``kimi_train`` (Adafactor: the experts cut to
+    KIMI_TRAIN_EXPERTS, steps repeated; then the kill and resume at the
+    smoke config).  Returns the launches per kernel."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model
+    from repro_torch.train import Adafactor, train_state_specs
+
+    zero, read, launches = _counter()
+    full = get_config("kimi_k2_1t_a32b")
+    # as the serving launcher does: prefill attention through the kernel
+    cfg = dataclasses.replace(full, num_layers=KIMI_SERVE_LAYERS,
+                              attention_impl="pallas")
+    api = build_model(cfg)
+    with torch.inference_mode():
+        # ---- kimi_serve: counts at 0 just before, read just after
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator(device=device).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        batch = prompt_batch(cfg, KIMI_B, KIMI_P, device)
+        zero()
+        moe.calls = 0
+        serve, kept = phase_serve_batch("kimi_serve", api, params, batch,
+                                        KIMI_G, device)
+        serve["kernel_launches"] = read()
+        serve["moe_ffn_ep_calls"] = moe.calls
+        if serve["kernel_launches"]["flash_attention"] != cfg.num_layers:
+            raise AssertionError(f"flash_attention launched "
+                                 f"{serve['kernel_launches']} in one "
+                                 f"prefill of {cfg.num_layers} layers")
+        if moe.calls != cfg.num_layers * (1 + KIMI_G):
+            raise AssertionError(f"moe_ffn_ep ran {moe.calls} times in a "
+                                 f"prefill and {KIMI_G} decode steps of "
+                                 f"{cfg.num_layers} layers")
+        serve.update({"init_seconds": t_init,
+                      "layers_cut_from": full.num_layers,
+                      "experts": [cfg.moe.num_experts,
+                                  cfg.moe.num_experts_padded],
+                      "top_k": cfg.moe.top_k})
+        serve["flash_at_kimi_heads"] = check_flash_at(
+            KIMI_B, KIMI_P, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+        serve.update(check_model_logits(
+            api, params, prompt_batch(cfg, 2, 96, device, seed=SEED + 1)))
+        serve["ep_vs_dense_layer"] = check_moe_layer(
+            cfg, params, device, KIMI_LAYER_B, KIMI_LAYER_S)
+        serve.update(check_repeated_prefill(api, params, batch, kept,
+                                            KIMI_P + KIMI_G))
+        # the KV cache 4 -> 1: counts at 0 just before, read just after
+        t1 = time.perf_counter()
+        zero()
+        restart = restart_cache(api, params, kept, store_dirs[0], KIMI_P,
+                                KIMI_STATE_DECODE, device)
+        restart["kernel_launches"] = read()
+        if not restart["kernel_launches"]["ckpt_pack"]:
+            raise AssertionError("ckpt_pack never launched in kimi's cache "
+                                 "save")
+        restart["phase_seconds"] = time.perf_counter() - t1
+        serve["cache_restart"] = restart
+        serve["phase_seconds"] = time.perf_counter() - t0
+        emit(serve)
+        del params, kept, batch
+        torch.cuda.empty_cache()
+
+    # ---- kimi_train: Adafactor, steps repeated; counts at 0 just before,
+    # read just after
+    t0 = time.perf_counter()
+    tcfg = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, num_experts=KIMI_TRAIN_EXPERTS))
+    tapi = build_model(tcfg)
+    zero()
+    moe.calls = 0
+    train = {"phase": "kimi_train", **repeat_train(
+        tapi, KIMI_TRAIN_B, KIMI_TRAIN_S, KIMI_TRAIN_STEPS,
+        KIMI_REPEAT_STEPS, device, opt=Adafactor(), report_state=True,
+        lr=KIMI_TRAIN_LR)}
+    train["kernel_launches"] = read()
+    train["moe_ffn_ep_calls"] = moe.calls
+    train.update({"layers_cut_from": full.num_layers,
+                  "experts_cut_from": full.moe.num_experts,
+                  "experts": tcfg.moe.num_experts, "top_k": tcfg.moe.top_k})
+    # the reference's slot names and shapes (the CPU tests hold the port's
+    # specs to the reference's): vr/ and vc/ for a factored parameter, v/
+    # for the rest
+    specs = train_state_specs(tapi, Adafactor())
+    got = train.pop("state_arrays")
+    want = {k: [list(s.shape), s.dtype] for k, s in specs.items()}
+    if got != want:
+        raise AssertionError(f"the Adafactor state's arrays differ from its "
+                             f"specs: {sorted(set(got) ^ set(want))}")
+    train["state_slots"] = {p: sum(k.startswith(f"opt/{p}/") for k in got)
+                            for p in ("vr", "vc", "v")}
+    # a remat span runs its layer again in the backward pass
+    per_step = (2 if tcfg.remat else 1) * tcfg.num_layers
+    for what, n, each in (
+            ("flash_attention", train["kernel_launches"]["flash_attention"],
+             per_step), ("moe_ffn_ep", moe.calls, per_step),
+            ("flash_attention_bwd",
+             train["kernel_launches"]["flash_attention_bwd"],
+             tcfg.num_layers)):
+        if n != each * train["steps_run"]:
+            raise AssertionError(f"{what} ran {n} times in "
+                                 f"{train['steps_run']} steps, not {each} "
+                                 f"a step")
+    torch.cuda.empty_cache()
+    # A, B and C of an Adafactor state at the smoke config (they count
+    # their own launches)
+    t1 = time.perf_counter()
+    train["resume"], _ = kill_and_resume(
+        build_model(get_smoke_config("kimi_k2_1t_a32b")), KIMI_RESUME_B,
+        KIMI_RESUME_S, store_dirs[1:], device, opt=Adafactor(),
+        lr=KIMI_RESUME_LR)
+    for k, n in train["resume"]["total_launches"].items():
+        launches[k] += n
+    train["resume"]["phase_seconds"] = time.perf_counter() - t1
+    train["phase_seconds"] = time.perf_counter() - t0
+    emit(train)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def quickstart_path(device) -> dict:
+    """The port of ``examples/quickstart.py`` on the card, with the launch
+    counts at 0 just before it and read just after: its first save packs
+    each of the 4 ranks' chunks through ckpt_pack (one launch a rank and
+    array); the next three steps commit the same host blocks, as the
+    reference's script does."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import quickstart
+
+    zero, read, launches = _counter()
+    t0 = time.perf_counter()
+    zero()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        store = quickstart.main(["--device", str(device)])
+    line = {"phase": "quickstart", "kernel_launches": read(),
+            "lines": out.getvalue().splitlines()}
+    shutil.rmtree(store, ignore_errors=True)
+    if not line["kernel_launches"]["ckpt_pack"]:
+        raise AssertionError("ckpt_pack never launched in the quickstart")
+    line["phase_seconds"] = time.perf_counter() - t0
+    emit(line)
+    return launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not (ROOT / "repro_torch" / "__init__.py").exists():
@@ -2812,6 +3242,10 @@ def main(argv=None) -> int:
     vlm_store = tempfile.mkdtemp(prefix="vlm_", dir=scratch)
     recurrent_stores = [tempfile.mkdtemp(prefix="xlstm_", dir=scratch)
                         for _ in range(3)]
+    whisper_stores = [tempfile.mkdtemp(prefix="whisper_", dir=scratch)
+                      for _ in range(3)]
+    kimi_stores = [tempfile.mkdtemp(prefix="kimi_", dir=scratch)
+                   for _ in range(3)]
     try:
         with torch.inference_mode():
             params = api.init(torch.Generator(device=device).manual_seed(SEED))
@@ -2850,9 +3284,16 @@ def main(argv=None) -> int:
         # ---- the recurrent families train: recurrentgemma-9b at 3 layers;
         # xlstm-350m served, its state restarted 4 -> 1, and trained
         recurrent_launches = recurrent_paths(device, recurrent_stores)
+        # ---- the last two families and the quickstart: whisper-base
+        # served, its cache restarted 4 -> 1, trained; kimi-k2 served at
+        # one full-width layer and trained under Adafactor
+        last_launches = [whisper_paths(device, whisper_stores),
+                         kimi_paths(device, kimi_stores),
+                         quickstart_path(device)]
     finally:
-        for d in [store_dir, hybrid_store, fem_store, moe_store,
-                  vlm_store] + train_stores + recurrent_stores:
+        for d in ([store_dir, hybrid_store, fem_store, moe_store, vlm_store]
+                  + train_stores + recurrent_stores + whisper_stores
+                  + kimi_stores):
             shutil.rmtree(d, ignore_errors=True)
     launches = {"ckpt_pack": dense["ckpt_pack"] + hybrid["ckpt_pack"]
                 + train["total_launches"]["ckpt_pack"]
@@ -2874,6 +3315,9 @@ def main(argv=None) -> int:
                 train["total_launches"]["flash_attention_bwd"]
                 + elastic_launches["flash_attention_bwd"]
                 + moe_launches["flash_attention_bwd"]}
+    for paths in last_launches:
+        for k, n in paths.items():
+            launches[k] += n
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: e[k] for k in keys}

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import importlib
 
-#: the architectures this package has ported so far
+#: the architectures this package has ported: all of the reference's
 ARCHS = [
     "smollm_135m",
     "recurrentgemma_9b",
@@ -20,6 +20,8 @@ ARCHS = [
     "qwen3_4b",
     "qwen2_vl_7b",
     "xlstm_350m",
+    "whisper_base",
+    "kimi_k2_1t_a32b",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
@@ -35,8 +37,8 @@ def canonical(arch: str) -> str:
 def _module(arch: str):
     name = canonical(arch)
     if name not in ARCHS:
-        raise ValueError(f"architecture {arch!r} is not ported yet "
-                         f"(ported: {ARCHS})")
+        raise ValueError(f"unknown architecture {arch!r} "
+                         f"(known: {ARCHS})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

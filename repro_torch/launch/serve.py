@@ -16,13 +16,20 @@ mesh flags are accepted and must stay at one device.
     python -m repro_torch.launch.serve --arch gemma2_2b
     python -m repro_torch.launch.serve --arch qwen2_vl_7b
     python -m repro_torch.launch.serve --arch xlstm_350m
+    python -m repro_torch.launch.serve --arch whisper-base
+    python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b --smoke \
+        --device cpu
 
 qwen2-vl-7b's prefill takes the synthetic batch of its embeddings input
 (``embeds`` and M-RoPE ``positions``), as the reference's launcher gives
 it; decode then feeds the greedy tokens.  gemma2-2b's alternating
 local/global layers take the blocked plain path, not the kernel, as the
 reference's dispatch does.  xlstm-350m carries an O(1) state (mLSTM matrix
-memories, sLSTM vectors) in place of a KV cache.
+memories, sLSTM vectors) in place of a KV cache.  whisper-base's batch
+carries the synthetic ``enc_frames`` [B, 1500, 512] beside its decoder
+prompt; its cache keeps the cross K/V that the prefill computed.  kimi-k2
+at full size (about 1 T parameters) fits no card: ``--smoke``, or a cut
+config built in Python as ``chip_smoke.py`` does.
 """
 
 from __future__ import annotations

@@ -2,10 +2,12 @@
 ``launch/train.py``: the same flags and the same JSON lines (one per logged
 step, then a summary).  Runs on the CUDA card, in PyTorch's deterministic
 mode (so a restart continues bit for bit); ``--smoke --device cpu`` runs the
-reduced config on the CPU through the plain PyTorch versions.  Every ported
+reduced config on the CPU through the plain PyTorch versions.  Every
 architecture trains: the decoder-only family (dense, MoE, VLM on
 embeddings), the RG-LRU hybrid (its scans through ``rglru_scan`` under
-autograd) and xLSTM.
+autograd), xLSTM and the whisper encoder-decoder (the trainer feeds zero
+``enc_frames``, as the reference's does), each under its config's
+optimizer (kimi-k2: Adafactor).
 
 One process trains on one device.  Under ``torchrun`` (which sets
 ``WORLD_SIZE``, ``RANK`` and the rendezvous address) the state is sharded

@@ -74,21 +74,19 @@ class TorchModelApi:
 
 
 def build_model(cfg: ModelConfig) -> TorchModelApi:
-    """The decoder-only family (dense and MoE FFNs, and the VLM backbone on
-    embeddings input), the RG-LRU hybrid and the xLSTM family; the
-    encoder-decoder (whisper) family is not ported yet."""
+    """The model of ``cfg``, dispatched as the reference's ``build_model``:
+    the RG-LRU hybrid, xLSTM, the encoder-decoder (whisper), else the
+    decoder-only transformer (dense and MoE FFNs, and the VLM backbone on
+    embeddings input)."""
     if cfg.recurrent == "rglru":
         from repro_torch.models import rglru
         return rglru.build(cfg)
     if cfg.recurrent == "xlstm":
         from repro_torch.models import xlstm
         return xlstm.build(cfg)
-    if (cfg.family not in ("dense", "moe", "vlm") or cfg.enc_dec
-            or cfg.recurrent != "none"):
-        raise NotImplementedError(
-            f"{cfg.arch}: the encoder-decoder (whisper) family is not "
-            f"ported; the decoder-only transformer (dense, MoE, VLM), the "
-            f"RG-LRU hybrid and xLSTM are")
+    if cfg.enc_dec:
+        from repro_torch.models import whisper
+        return whisper.build(cfg)
     from repro_torch.models import transformer
     return transformer.build(cfg)
 

@@ -9,7 +9,11 @@ from repro_torch.train.loop import (  # noqa: F401
     TorchTrainer,
     TrainerConfig,
 )
-from repro_torch.train.optim import AdamW, make_optimizer  # noqa: F401
+from repro_torch.train.optim import (  # noqa: F401
+    Adafactor,
+    AdamW,
+    make_optimizer,
+)
 from repro_torch.train.schedule import warmup_cosine  # noqa: F401
 from repro_torch.train.step import (  # noqa: F401
     TrainStep,

@@ -205,13 +205,18 @@ class TorchTrainer:
         batch = self.data.batch(step_idx)
         out = {}
         for k, spec in self.step.abstract_batch.items():
-            # extra inputs (e.g. whisper enc_frames) default to zeros
-            arr = (batch[k] if k in batch
-                   else np.zeros(spec.shape, dtype=np.dtype(spec.dtype)))
-            if self.mesh is not None:
-                arr = np.ascontiguousarray(arr[local_box(
-                    spec.shape, self.mesh,
-                    self.step.batch_shardings[k]).slices()])
+            box = (None if self.mesh is None else local_box(
+                spec.shape, self.mesh, self.step.batch_shardings[k]))
+            if k not in batch:
+                # extra inputs (e.g. whisper enc_frames) default to zeros,
+                # made in torch: NumPy has no bfloat16 without ml_dtypes
+                out[k] = torch.zeros(spec.shape if box is None else box.shape,
+                                     dtype=getattr(torch, spec.dtype),
+                                     device=self.device)
+                continue
+            arr = batch[k]
+            if box is not None:
+                arr = np.ascontiguousarray(arr[box.slices()])
             out[k] = torch.from_numpy(arr).to(self.device)
         return out
 

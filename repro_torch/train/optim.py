@@ -10,8 +10,12 @@ An optimizer exposes:
   * ``update(params, grads, state, lr, step)`` — returns (new_params,
     new_state), computed in float32 in the reference's order.
 
-AdamW keeps float32 (m, v).  Adafactor is not ported yet: it serves kimi-k2
-only, whose MoE layers are not ported either.
+AdamW keeps float32 (m, v) and updates each element alone
+(``elementwise``), so a sharded step applies it to each process's shard.
+Adafactor keeps factored float32 second moments (row and column means,
+``vr/`` and ``vc/``; ``v/`` for a vector) and scales each update by
+reductions over a whole parameter, or over each leading slice of a
+layer-stacked one: it is not elementwise.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ class AdamW:
     weight_decay: float = 0.1
 
     name = "adamw"
+    elementwise = True
 
     def state_specs(self, param_specs: dict[str, ParamSpec]
                     ) -> dict[str, ParamSpec]:
@@ -63,11 +68,105 @@ class AdamW:
         return new_p, new_s
 
 
+@dataclasses.dataclass(frozen=True)
+class Adafactor:
+    """Shazeer & Stern (2018): factored second moments, no first moment,
+    update clipping, relative step scaling.  The reference's slots, order
+    of operations and per-slice updates; its reductions are XLA's, so an
+    update matches within f32 rounding, not bit for bit."""
+
+    eps1: float = 1e-30
+    eps2: float = 1e-3
+    clip_threshold: float = 1.0
+    decay_pow: float = 0.8
+
+    name = "adafactor"
+    elementwise = False
+
+    def _factored(self, shape) -> bool:
+        return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+    def state_specs(self, param_specs: dict[str, ParamSpec]
+                    ) -> dict[str, ParamSpec]:
+        out: dict[str, ParamSpec] = {}
+        for n, s in param_specs.items():
+            if self._factored(s.shape):
+                out[f"vr/{n}"] = ParamSpec(s.shape[:-1], s.axes[:-1],
+                                           "float32", init="zeros")
+                out[f"vc/{n}"] = ParamSpec(s.shape[:-2] + s.shape[-1:],
+                                           s.axes[:-2] + s.axes[-1:],
+                                           "float32", init="zeros")
+            else:
+                out[f"v/{n}"] = ParamSpec(s.shape, s.axes, "float32",
+                                          init="zeros")
+        return out
+
+    def init(self, param_specs: dict[str, ParamSpec], device="cpu"):
+        return {k: torch.zeros(s.shape, dtype=F32, device=device)
+                for k, s in self.state_specs(param_specs).items()}
+
+    def decay(self, step) -> torch.Tensor:
+        """f32 ``1 - (step + 1) ** -decay_pow``, as XLA computes it: the
+        exponent rounded to f32 (the reference's weakly typed constant),
+        the power in f64 rounded once to f32 (``_rope_freq``'s way).  With
+        the exponent left in f64, 5 of steps 0-99 land an ulp off."""
+        t = (step + 1).to(F32)
+        expo = torch.tensor(-self.decay_pow, dtype=F32).item()
+        return 1.0 - (t.double() ** expo).float()
+
+    def _one(self, p, g, vr, vc, v, lr, decay):
+        """One parameter's update in f32; returns (p', vr', vc', v')."""
+        g = g.to(F32)
+        g2 = g * g + self.eps1
+        if vr is not None:
+            vr = decay * vr + (1 - decay) * g2.mean(-1)
+            vc = decay * vc + (1 - decay) * g2.mean(-2)
+            denom = (vr / torch.clamp(vr.mean(-1, keepdim=True),
+                                      min=self.eps1))[..., None] \
+                * vc[..., None, :]
+            u = g / torch.sqrt(denom + self.eps1)
+        else:
+            v = decay * v + (1 - decay) * g2
+            u = g / torch.sqrt(v + self.eps1)
+        rms_u = torch.sqrt(torch.mean(u * u) + self.eps1)
+        u = u / torch.clamp(rms_u / self.clip_threshold, min=1.0)
+        scale = torch.clamp(torch.sqrt(torch.mean(p.to(F32) ** 2)),
+                            min=self.eps2)
+        new_p = (p.to(F32) - lr * scale * u).to(p.dtype)
+        return new_p, vr, vc, v
+
+    def update(self, params, grads, state, lr, step):
+        decay = self.decay(step)
+        new_p, new_s = {}, {}
+        for n, p in params.items():
+            g = grads[n]
+            factored = self._factored(p.shape)
+            vr = state.get(f"vr/{n}") if factored else None
+            vc = state.get(f"vc/{n}") if factored else None
+            v = state.get(f"v/{n}") if not factored else None
+            if p.dim() >= 3 and p.shape[0] > 1 and factored:
+                # a layer-stacked parameter: one leading slice at a time,
+                # each its own parameter (per-slice RMS clip and scale), as
+                # the reference's scan over the slices
+                outs = [self._one(p[i], g[i], vr[i], vc[i], None, lr, decay)
+                        for i in range(p.shape[0])]
+                new_p[n] = torch.stack([o[0] for o in outs])
+                new_s[f"vr/{n}"] = torch.stack([o[1] for o in outs])
+                new_s[f"vc/{n}"] = torch.stack([o[2] for o in outs])
+            else:
+                np_, nvr, nvc, nv = self._one(p, g, vr, vc, v, lr, decay)
+                new_p[n] = np_
+                if factored:
+                    new_s[f"vr/{n}"] = nvr
+                    new_s[f"vc/{n}"] = nvc
+                else:
+                    new_s[f"v/{n}"] = nv
+        return new_p, new_s
+
+
 def make_optimizer(name: str):
     if name == "adamw":
         return AdamW()
     if name == "adafactor":
-        raise NotImplementedError(
-            "Adafactor is not ported yet: it serves kimi-k2 only, whose MoE "
-            "layers are not ported either (ROADMAP.md, Queue 1)")
+        return Adafactor()
     raise ValueError(name)

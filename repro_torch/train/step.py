@@ -19,7 +19,8 @@ one-device step's values: every process gathers the parameters, runs the
 forward and backward on its data rank's rows of the global batch (the
 kernels take the plain local tensors), averages the gradients over the
 batch axes, and applies AdamW (elementwise) to its own shard of every
-parameter and slot.  Processes on the model axis repeat the same compute,
+parameter and slot (Adafactor, which is not elementwise, is refused on a
+mesh that shards the state).  Processes on the model axis repeat the same compute,
 except in an expert-parallel MoE layer (``models/moe.py::moe_ffn_ep``):
 its expert arrays are gathered over the other axes only, each process
 runs its own experts, and their gradients (this process's experts,
@@ -227,8 +228,17 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
                          abstract_batch=b_specs)
 
     st_sh = state_shardings(mesh, rules, specs)
-    b_sh = batch_shardings(mesh, rules, b_specs)
     sizes = mesh_shape(mesh)
+    if not optimizer.elementwise and any(
+            p.is_shard() and n > 1 for pl in st_sh.values()
+            for p, n in zip(pl, sizes.values())):
+        # its scale and clip reduce over whole parameters (or leading
+        # slices), which a process's shard does not hold
+        raise NotImplementedError(
+            f"{optimizer.name} on a mesh that shards the state: the "
+            f"sharded step applies the optimizer to each process's shard, "
+            f"which only an elementwise optimizer allows")
+    b_sh = batch_shardings(mesh, rules, b_specs)
     # the batch axes' groups, if the batch is sharded over any of them
     batch_sharded = any(p.is_shard() for p in next(iter(b_sh.values())))
     groups = [mesh.get_group(a) for a in rules.batch_axes

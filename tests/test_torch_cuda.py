@@ -84,6 +84,10 @@ def test_ckpt_pack_kernel_into_offset_buffer(cuda):
     (2, 512, 512, 28, 4, 128, 0, 0.0, 0, False),  # vlm_state's prefill
     (1, 65, 65, 14, 2, 128, 0, 0.0, 0, False),
     (1, 100, 300, 7, 1, 128, 0, 0.0, 200, False),
+    # kimi-k2's heads: 64 query heads over 8 kv heads (G 8) at hd 128, at
+    # its serving prefill and ragged
+    (4, 512, 512, 64, 8, 128, 0, 0.0, 0, False),
+    (2, 200, 200, 16, 2, 128, 0, 0.0, 0, False),
 ])
 def test_flash_attention_kernel_within_tolerance(cuda, B, Sq, Sk, Hq, Hkv, hd,
                                                  window, cap, qoff, fused):
@@ -308,6 +312,7 @@ def test_rglru_scan_repeats_bit_for_bit_in_deterministic_mode(cuda):
     # few blocks: the schedule cuts every key block into runs of at most 5
     # items and sums their partials (hd 64, G 4)
     (1, 1024, 1024, 8, 2, 64, 0, 0.0, 0),
+    (4, 1024, 1024, 64, 8, 128, 0, 0.0, 0),     # kimi_train's heads, G 8
 ])
 def test_flash_attention_bwd_kernel_within_tolerance(cuda, B, Sq, Sk, Hq,
                                                      Hkv, hd, window, cap,
@@ -345,6 +350,7 @@ def test_flash_attention_bwd_kernel_within_tolerance(cuda, B, Sq, Sk, Hq,
     (4, 2048, 9, 3, 64),        # smollm's train step
     (4, 1024, 24, 8, 64),       # granite's
     (1, 512, 32, 8, 128),       # qwen3-4b's heads: split key blocks summed
+    (4, 1024, 64, 8, 128),      # kimi_train's heads, G 8
 ])
 def test_flash_attention_bwd_kernel_repeats_bit_for_bit(cuda, B, S, Hq, Hkv,
                                                         hd):
@@ -537,6 +543,55 @@ def test_vlm_prefill_on_the_card_matches_the_cpu(cuda):
         assert bool(torch.isfinite(got).all())
         assert float((got - want).abs().max()) <= \
             2e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_whisper_prefill_and_decode_on_the_card_match_the_cpu(cuda, dtype,
+                                                              tol):
+    """whisper's smoke model over 40 frames (its blocked attention, no
+    kernel), prefilled with 24 tokens and decoded 4 steps, on the card and
+    on the CPU from the same weights and inputs: the logits of every step
+    and the whole cache (k, v, the cross K/V) within ``tol`` of each
+    array's scale (f32 1e-5, bf16 2e-2); the CPU's greedy tokens fed to
+    both."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import build_model, make_token_batch
+
+    cfg = dataclasses.replace(get_smoke_config("whisper_base"), dtype=dtype,
+                              encoder_seq=40)
+    api = build_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in make_token_batch(
+        cfg, ShapeConfig("p", 24, 2, "prefill"), seed=1).items()}
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    runs = {"cpu": api.prefill(params, batch, 28),
+            "card": api.prefill(on_card, {k: v.to(cuda)
+                                          for k, v in batch.items()}, 28)}
+
+    def same(what):
+        (got, got_cache), (want, want_cache) = runs["card"], runs["cpu"]
+        for name, a, b in [("logits", got, want)] + [
+                (k, got_cache[k], want_cache[k])
+                for k in ("k", "v", "xk", "xv")]:
+            a, b = a.float().cpu(), b.float()
+            assert bool(torch.isfinite(a).all()), (what, name)
+            assert float((a - b).abs().max()) <= tol * float(
+                b.abs().max()), (what, name)
+        assert int(got_cache["length"]) == int(want_cache["length"])
+
+    same("prefill")
+    for i in range(4):
+        token = torch.argmax(runs["cpu"][0], -1).to(torch.int32)[:, None]
+        pos = torch.full((2,), 24 + i, dtype=torch.int32)
+        runs = {"cpu": api.decode_step(params, runs["cpu"][1],
+                                       {"token": token, "pos": pos}),
+                "card": api.decode_step(on_card, runs["card"][1],
+                                        {"token": token.to(cuda),
+                                         "pos": pos.to(cuda)})}
+        same(f"decode step {i}")
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

@@ -434,10 +434,19 @@ def test_serve_step_builders_install_the_context():
 
 
 def test_build_model_admits_moe_and_refuses_the_rest():
+    """granite builds, and ``enc_dec`` now dispatches to the whisper
+    family, as the reference's ``build_model`` does, whatever the
+    config's family says (nothing is refused any more)."""
+    from repro_torch.models import whisper
+
     torch_build_model(torch_get_config(ARCH))
-    with pytest.raises(NotImplementedError):
-        torch_build_model(dataclasses.replace(
-            torch_smoke_config("smollm_135m"), family="audio", enc_dec=True))
+    cfg = dataclasses.replace(torch_smoke_config("smollm_135m"),
+                              family="audio", enc_dec=True)
+    api = torch_build_model(cfg)
+    assert sorted(api.param_specs) == sorted(whisper.param_specs(cfg))
+    assert "dec/xk" in api.param_specs
+    assert sorted(api.cache_specs(2, 8)) == ["k", "length", "v", "xk",
+                                             "xv"]
 
 
 @pytest.mark.parametrize("impl", ["dense", "ep"])

@@ -55,7 +55,7 @@ from repro_torch.train import schedule
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.loop import (SimulatedPreemption, TorchTrainer,
                                     TrainerConfig)
-from repro_torch.train.optim import AdamW, make_optimizer
+from repro_torch.train.optim import Adafactor, AdamW, make_optimizer
 from repro_torch.train.step import (init_train_state, make_train_step,
                                     train_state_specs)
 
@@ -350,8 +350,7 @@ def test_adamw_matches_reference():
 
 def test_make_optimizer_and_state_specs():
     assert isinstance(make_optimizer("adamw"), AdamW)
-    with pytest.raises(NotImplementedError, match="Adafactor"):
-        make_optimizer("adafactor")
+    assert isinstance(make_optimizer("adafactor"), Adafactor)
     with pytest.raises(ValueError):
         make_optimizer("sgd")
     cfg, tcfg = _cfgs()
