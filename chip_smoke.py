@@ -14,7 +14,9 @@ recurrent families' training, recurrentgemma-9b at 3 layers through the
 scan's gradient and xlstm-350m served, restarted and trained at full size;
 and the last two families: whisper-base (encoder-decoder) served,
 restarted and trained at full size, kimi-k2 served at one full-width layer
-and trained under Adafactor; and the quickstart example.
+and trained under Adafactor; the quickstart example; and serving on a
+mesh, a sharded KV cache served by 4 CPU processes and restored on the
+card.
 
   device   the card's name and power limit (nvidia-smi);
   build    the hand-written kernels, compiled from this checkout's sources;
@@ -156,6 +158,19 @@ and trained under Adafactor; and the quickstart example.
   quickstart  the port of ``examples/quickstart.py`` on the card: two
            tensors saved from 4 ranks (ckpt_pack) and loaded on 3 with
            another partition, bit for bit on the card.
+  serve_mesh  serving on a mesh: smollm-135m at full width, depth cut to
+           2 layers; 4 CPU processes (gloo, mesh (2, 2)) prefill B 4
+           prompts of 64 and decode 16 steps through the sharded step
+           builders, the KV cache's sequence dim split over the model axis
+           (the sequence-parallel decode attention), and save the cache as
+           one checkpoint rank per process; the card (NCCL, mesh (1, 1))
+           restores it 4-to-1 bit for bit, decodes 8 more steps through the
+           mesh builders, each step's logits bit-equal to the one-device
+           step's from the same cache, prefills through the mesh builder
+           (flash_attention, counted) bit-equal to the one-device prefill,
+           and re-saves the cache as one rank (ckpt_pack); then the serve
+           launcher on the card in the environment ``torchrun
+           --nproc-per-node 1`` gives it (a (1, 1) NCCL mesh).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of a path that never launched fails the run (the fem,
@@ -420,6 +435,17 @@ KIMI_TRAIN_STEPS, KIMI_REPEAT_STEPS = 4, 2
 # ones do not move its loss past the batches' noise in 6 steps)
 KIMI_TRAIN_LR, KIMI_RESUME_LR = 0.005, 0.1
 KIMI_RESUME_B, KIMI_RESUME_S = 4, 64
+# serving on a mesh: smollm-135m at full width (d_model 576, 9 heads over
+# 3 kv heads) with its depth cut to 2 of 30 layers; 4 CPU processes (gloo,
+# mesh (2, 2)) prefill B 4 prompts of 64 tokens and decode 16 steps with
+# the KV cache's sequence dim split over the model axis, then save it as
+# one checkpoint rank per process; the card (one NCCL process, mesh (1,
+# 1)) restores it and decodes SERVE_MESH_CARD_G more steps, so the cache
+# holds P + G + SERVE_MESH_CARD_G positions
+SERVE_MESH_LAYERS, SERVE_MESH_B, SERVE_MESH_P, SERVE_MESH_G = 2, 4, 64, 16
+SERVE_MESH_N, SERVE_MESH_CARD = (2, 2), (1, 1)
+SERVE_MESH_CARD_G = 8
+SERVE_MESH_TIMEOUT = 600
 
 
 def emit(obj) -> None:
@@ -3199,6 +3225,181 @@ def quickstart_path(device) -> dict:
     return launches
 
 
+def serve_mesh_path(device, scratch: Path) -> dict:
+    """The ``serve_mesh`` phase: the CPU leg (4 spawned processes serve on
+    (2, 2) and save the sharded cache), the card leg (restored 4 -> 1 on a
+    (1, 1) NCCL mesh, every array bit-equal; SERVE_MESH_CARD_G decode steps
+    through the mesh builders, each step's logits bit-equal to the
+    one-device step's from the same restored cache; a prefill through the
+    mesh builder, bit-equal to the one-device prefill, its flash kernel
+    launches counted; the decoded cache saved as one rank through
+    ckpt_pack and read back bit for bit), then the serve launcher on the
+    card in the environment torchrun gives a world of one.  The counts are
+    at 0 just before the card leg and read just after its path (the
+    one-device prefill it is held to comes after the reading)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.store import DatasetStore
+    from repro_torch.core.tensor_ckpt import TensorCheckpoint
+    from repro_torch.core.torch_io import (layout_from_torch, load_torch,
+                                           save_torch)
+    from repro_torch.distrib.rules import rules_for
+    from repro_torch.launch.mesh import (free_port, init_distributed,
+                                         make_debug_mesh)
+    from repro_torch.launch.serve import greedy, shard_params
+    from repro_torch.launch.spawn import run_processes
+    from repro_torch.models.api import build_model
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from helpers.torch_serve_mesh_workers import (full_width_config,
+                                                  serve_and_save)
+
+    B, P, G, G2 = (SERVE_MESH_B, SERVE_MESH_P, SERVE_MESH_G,
+                   SERVE_MESH_CARD_G)
+    cache_len, step = P + G + G2, 1
+    t_phase = time.perf_counter()
+    stores = [tempfile.mkdtemp(prefix="serve_mesh_", dir=scratch)
+              for _ in range(2)]
+    keep = str(scratch / "serve_mesh_cache.pt")
+    legs = []
+    try:
+        # ---- the CPU leg: 4 processes on (2, 2)
+        t0 = time.perf_counter()
+        cpu = run_processes(serve_and_save, 4, (
+            "smollm_135m", SERVE_MESH_LAYERS, SERVE_MESH_N, B, P, G,
+            cache_len, stores[0], step, keep, SEED),
+            timeout=SERVE_MESH_TIMEOUT, pg_timeout=SERVE_MESH_TIMEOUT)
+        kept = torch.load(keep)
+        legs.append({"leg": "N", "processes": 4, "device": "cpu",
+                     "mesh": list(SERVE_MESH_N),
+                     "prefill_seconds": max(r["prefill_seconds"] for r in cpu),
+                     "decode_seconds": max(r["decode_seconds"] for r in cpu),
+                     "save_seconds": max(r["save_seconds"] for r in cpu),
+                     "placements": cpu[0]["placements"],
+                     "local_shapes": cpu[0]["local_shapes"],
+                     "seconds": time.perf_counter() - t0})
+
+        # ---- the card leg: one NCCL process on (1, 1)
+        t0 = time.perf_counter()
+        cfg = full_width_config("smollm_135m", SERVE_MESH_LAYERS)
+        api, rules = build_model(cfg), rules_for(cfg.arch)
+        zero, read, launches = _counter()
+        zero()
+        init_distributed("cuda", rank=0, world_size=1,
+                         timeout=SERVE_MESH_TIMEOUT)
+        try:
+            mesh = make_debug_mesh(*SERVE_MESH_CARD, device_type="cuda")
+            with torch.inference_mode():
+                params = {k: v.to(device) for k, v in api.init(
+                    torch.Generator().manual_seed(SEED)).items()}
+                sharded = shard_params(api, params, mesh, rules)
+                shape = ShapeConfig("serve", P, B, "prefill")
+                prefill = make_prefill_step(api, shape, cache_len, mesh=mesh,
+                                            rules=rules)
+                t1 = time.perf_counter()
+                ck = TensorCheckpoint(DatasetStore(stores[0], "r"))
+                cache = load_torch(ck, api.abstract_cache(B, cache_len), step,
+                                   device="cuda", mesh=mesh,
+                                   shardings=prefill.cache_shardings)
+                ck.store.close()
+                restore_s = time.perf_counter() - t1
+                equal = [k for k, v in kept["cache"].items()
+                         if _same_bits(cache[k].to_local(), v.to(device))]
+                if len(equal) != len(kept["cache"]):
+                    raise AssertionError(f"the 4 -> 1 restore: only {equal} "
+                                         f"bit-equal")
+                plain = {k: v.to_local().clone() for k, v in cache.items()}
+                decode, one = (make_decode_step(api, mesh=mesh, rules=rules),
+                               make_decode_step(api))
+                tok = kept["tokens"][:, -1:].to(device)
+                same, toks = 0, []
+                for i in range(G2):
+                    batch = {"token": tok, "pos": torch.full(
+                        (B,), P + G + i, dtype=torch.int32, device=device)}
+                    logits, cache = decode(sharded, cache, batch)
+                    want, plain = one(params, plain, batch)
+                    same += _same_bits(logits.to_local(), want)
+                    tok = greedy(want)
+                    toks.append(tok)
+                if same != G2 or not all(
+                        _same_bits(cache[k].to_local(), v)
+                        for k, v in plain.items()):
+                    raise AssertionError(f"the (1, 1) mesh decode: {same} of "
+                                         f"{G2} steps bit-equal to one device")
+                prompts = {k: v.to(device) for k, v in kept["prompts"].items()}
+                got, _ = prefill(sharded, prompts)
+                # the decoded cache back to a store as one rank (ckpt_pack),
+                # read back bit for bit
+                ck = TensorCheckpoint(DatasetStore(stores[1], "w"))
+                ck.save_layout(layout_from_torch(cache))
+                save_torch(ck, cache, step)
+                back = load_torch(ck, api.abstract_cache(B, cache_len), step,
+                                  device="cuda")
+                ck.store.close()
+                got_launches = read()
+                if not all(_same_bits(back[k], v.to_local())
+                           for k, v in cache.items()):
+                    raise AssertionError("the card's re-save did not read "
+                                         "back bit for bit")
+                # the one-device prefill it is held to (launches not counted)
+                want, _ = make_prefill_step(api, shape, cache_len)(params,
+                                                                   prompts)
+                if not _same_bits(got.to_local(), want):
+                    raise AssertionError("the (1, 1) mesh prefill differs from "
+                                         "the one-device prefill")
+        finally:
+            torch.distributed.destroy_process_group()
+        if got_launches["flash_attention"] != SERVE_MESH_LAYERS or \
+                not got_launches["ckpt_pack"]:
+            raise AssertionError(f"the card leg launched {got_launches}: "
+                                 f"expected {SERVE_MESH_LAYERS} flash "
+                                 f"launches (its prefill) and ckpt_pack")
+        legs.append({"leg": "card", "processes": 1, "device": "cuda",
+                     "mesh": list(SERVE_MESH_CARD), "restored_step": step,
+                     "restore_seconds": restore_s,
+                     "bit_equal_arrays": len(equal),
+                     "decode_steps_bit_equal_to_one_device": same,
+                     "prefill_bit_equal_to_one_device": True,
+                     "tokens": torch.cat(toks, 1).cpu().tolist(),
+                     "launches": got_launches,
+                     "seconds": time.perf_counter() - t0})
+
+        # ---- the launcher: a world of one as torchrun starts it (its
+        # environment, without torchrun's own process), on the card
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "smollm-135m"], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT), WORLD_SIZE="1",
+                     RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(free_port())),
+            capture_output=True, text=True, timeout=SERVE_MESH_TIMEOUT)
+        if res.returncode != 0:
+            raise AssertionError(f"the serve launcher under torchrun: "
+                                 f"{res.stderr[-3000:]}")
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        if line.get("device") != torch.cuda.get_device_name(0):
+            raise AssertionError(f"the launcher's line: {line}")
+        legs.append({"leg": "launcher", "command": "WORLD_SIZE=1 RANK=0 "
+                     "MASTER_ADDR=localhost python -m "
+                     "repro_torch.launch.serve --arch smollm-135m",
+                     "line": line,
+                     "seconds": time.perf_counter() - t0})
+    finally:
+        for d in stores:
+            shutil.rmtree(d, ignore_errors=True)
+        Path(keep).unlink(missing_ok=True)
+    emit({"phase": "serve_mesh", "arch": cfg.arch,
+          "layers": SERVE_MESH_LAYERS, "batch": B, "prompt": P,
+          "decode_steps": [G, G2], "cache_len": cache_len,
+          "cache_bytes": sum(v.numel() * v.element_size()
+                             for v in kept["cache"].values()),
+          "legs": legs, "bit_exact_restore": True,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not (ROOT / "repro_torch" / "__init__.py").exists():
@@ -3289,7 +3490,10 @@ def main(argv=None) -> int:
         # one full-width layer and trained under Adafactor
         last_launches = [whisper_paths(device, whisper_stores),
                          kimi_paths(device, kimi_stores),
-                         quickstart_path(device)]
+                         quickstart_path(device),
+                         # ---- serving on a mesh: smollm's sharded cache
+                         # 4 CPU processes -> the card, and the launcher
+                         serve_mesh_path(device, scratch)]
     finally:
         for d in ([store_dir, hybrid_store, fem_store, moe_store, vlm_store]
                   + train_stores + recurrent_stores + whisper_stores

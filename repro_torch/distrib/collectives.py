@@ -21,6 +21,8 @@ plain ``all_reduce``s under autograd, each boundary needs its own backward:
 A group of ``None`` (a mesh axis of size 1) is the identity both ways, so
 a (1, 1) mesh runs no collective.  Sums run in f32 and are cast back to
 the tensor's dtype, so the backend needs no bf16 reduction.
+:func:`gather_along` (no autograd) is the sharded decode step's exchange
+of per-token results.
 """
 
 from __future__ import annotations
@@ -81,3 +83,19 @@ def mean_over_groups(x: torch.Tensor, groups: list, n: int) -> torch.Tensor:
     """``groups``: the batch axes' groups of size > 1; ``n`` the product of
     the batch axes' sizes."""
     return x if not groups else _MeanOverGroups.apply(x, groups, n)
+
+
+def gather_along(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's tensors ``t`` (one shape on every process) concatenated
+    along ``dim`` in rank order; ``t`` itself for a group of None.  bf16
+    travels as its 2-byte words, so the bits arrive as sent on any
+    backend."""
+    if group is None:
+        return t
+    wire = t.contiguous()
+    if wire.dtype == torch.bfloat16:
+        wire = wire.view(torch.int16)
+    parts = [torch.empty_like(wire)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat([p.view(t.dtype) for p in parts], dim)

@@ -227,3 +227,11 @@ def batch_shardings(mesh, rules: RuleTable, batch_specs: dict) -> dict:
             out[k] = placements_for((), mesh)
     return out
 
+
+def cache_shardings(mesh, rules: RuleTable, cache_specs: dict,
+                    cache_axes: dict) -> dict:
+    """Serving-cache placements: each entry by its logical axes
+    (``api.cache_axes()``), as the reference's ``cache_shardings``."""
+    return {k: rules.sharding_for(mesh, tuple(cache_axes[k]),
+                                  tuple(sds.shape))
+            for k, sds in cache_specs.items()}

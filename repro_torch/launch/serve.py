@@ -6,8 +6,15 @@ the step builders (``train/step.py::make_prefill_step`` and
 ``make_decode_step``) on a (1, 1) mesh, so an MoE model runs its
 expert-parallel layer.  Runs on the CUDA card; ``--smoke --device cpu``
 runs the reduced config on the CPU through the plain PyTorch versions.
-Serving has no mesh path yet (the sharded steps are still to port): the
-mesh flags are accepted and must stay at one device.
+
+Under ``torchrun`` (which sets ``WORLD_SIZE``, ``RANK`` and the rendezvous
+address) it serves on a ("data", "model") mesh of ``--data-mesh`` x
+``--model-mesh`` processes, which must be the world size
+(``--production-mesh``: 16 x 16, 256 processes): the parameters sharded by
+the rule table, each process prefilling its rows of the batch and
+decoding against its shard of the cache (the KV cache's sequence dim over
+the model axis); only rank 0 prints.  A world of one is a (1, 1) mesh
+(NCCL on the card), which serves through the same path.
 
     python -m repro_torch.launch.serve --arch smollm_135m
     python -m repro_torch.launch.serve --arch recurrentgemma_9b
@@ -19,6 +26,8 @@ mesh flags are accepted and must stay at one device.
     python -m repro_torch.launch.serve --arch whisper-base
     python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b --smoke \
         --device cpu
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch smollm-135m --smoke --device cpu --data-mesh 2 --model-mesh 2
 
 qwen2-vl-7b's prefill takes the synthetic batch of its embeddings input
 (``embeds`` and M-RoPE ``positions``), as the reference's launcher gives
@@ -37,16 +46,22 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.distrib.rules import from_local, local_box, rules_for
+from repro_torch.launch.mesh import (init_distributed, make_debug_mesh,
+                                     make_production_mesh)
 from repro_torch.models.api import build_model, make_token_batch
-from repro_torch.train.step import make_decode_step, make_prefill_step
+from repro_torch.train.step import (make_decode_step, make_prefill_step,
+                                    shard_state, state_shardings)
 
 
 def _sync(device: torch.device) -> None:
@@ -69,15 +84,25 @@ def batch_dims(batch: dict[str, torch.Tensor]) -> tuple[int, int]:
     return x.shape[0], x.shape[1]
 
 
+def greedy(logits) -> torch.Tensor:
+    """[B, 1] int32 argmax tokens of logits [B, V]; of this process's rows
+    when the logits are a DTensor (the sharded steps')."""
+    if isinstance(logits, DTensor):
+        logits = logits.to_local()
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
 def decode_steps(api, params, cache, token, pos: int, steps: int,
-                 device: torch.device, on_step=None) -> list[torch.Tensor]:
+                 device: torch.device, on_step=None, *, mesh=None,
+                 rules=None) -> list[torch.Tensor]:
     """``steps`` greedy decode steps in lockstep from ``cache`` through
-    ``make_decode_step(api)``, feeding ``token`` [B, 1] at position ``pos``
-    first.  Returns the tokens fed and produced ([B, 1] int32 each,
-    ``steps + 1`` of them).  ``on_step(i, logits)``, if given, sees each
-    step's logits (i = 1..steps)."""
+    ``make_decode_step(api, mesh=mesh, rules=rules)``, feeding ``token``
+    [B, 1] at position ``pos`` first (on a mesh: this process's rows, the
+    parameters and the cache DTensors).  Returns the tokens fed and
+    produced ([B, 1] int32 each, ``steps + 1`` of them).  ``on_step(i,
+    logits)``, if given, sees each step's logits (i = 1..steps)."""
     B = token.shape[0]
-    decode = make_decode_step(api)
+    decode = make_decode_step(api, mesh=mesh, rules=rules)
     toks = [token]
     for i in range(steps):
         step_batch = {"token": toks[-1],
@@ -86,17 +111,30 @@ def decode_steps(api, params, cache, token, pos: int, steps: int,
         logits, cache = decode(params, cache, step_batch)
         if on_step is not None:
             on_step(i + 1, logits)
-        toks.append(torch.argmax(logits, dim=-1).to(torch.int32)[:, None])
+        toks.append(greedy(logits))
     return toks
 
 
+def shard_params(api, params, mesh, rules) -> dict:
+    """DTensors of parameters that every process holds whole and alike
+    (made from one seed), on the placements the rule table gives them."""
+    return shard_state(params, mesh,
+                       state_shardings(mesh, rules, api.param_specs))
+
+
 def serve_batch(api, params, batch: dict[str, torch.Tensor], gen_len: int,
-                device: torch.device, *, on_prefill=None, on_step=None
-                ) -> tuple[np.ndarray, dict]:
+                device: torch.device, *, on_prefill=None, on_step=None,
+                mesh=None, rules=None) -> tuple[np.ndarray, dict]:
     """One batched prefill of the prompt ``batch`` (``tokens`` [B, P], or
     ``embeds`` [B, P, D] and ``positions`` under embeddings input) through
     ``make_prefill_step``, then ``gen_len`` greedy decode steps in
     lockstep.
+
+    On a ``mesh`` (``rules`` default ``rules_for(api.cfg.arch)``) the
+    parameters are DTensors (``shard_params``), ``batch`` is the whole
+    prompt batch, which every process holds alike, and each process
+    serves its rows of it with the cache sharded (the sharded prefill and
+    decode steps of ``train/step.py``); the tokens are gathered at the end.
 
     Returns (tokens [B, gen_len + 1] int32: the prefill's greedy token and
     each step's, {"prefill_seconds", "decode_seconds"}), each time taken on
@@ -105,7 +143,10 @@ def serve_batch(api, params, batch: dict[str, torch.Tensor], gen_len: int,
     decode step writes into the cache; ``on_step`` is ``decode_steps``'s."""
     B, P = batch_dims(batch)
     prefill = make_prefill_step(api, ShapeConfig("serve", P, B, "prefill"),
-                                cache_len=P + gen_len)
+                                cache_len=P + gen_len, mesh=mesh, rules=rules)
+    if mesh is not None:
+        batch = {k: v[local_box(v.shape, mesh, prefill.batch_shardings[k])
+                      .slices()] for k, v in batch.items()}
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
@@ -116,13 +157,16 @@ def serve_batch(api, params, batch: dict[str, torch.Tensor], gen_len: int,
             on_prefill(logits, cache)
 
         t1 = time.perf_counter()
-        toks = decode_steps(api, params, cache,
-                            torch.argmax(logits, dim=-1).to(torch.int32)[:, None],
-                            P, gen_len, device, on_step)
+        toks = decode_steps(api, params, cache, greedy(logits), P, gen_len,
+                            device, on_step, mesh=mesh, rules=rules)
         _sync(device)
         t_decode = time.perf_counter() - t1
-    out = np.concatenate([t.cpu().numpy() for t in toks], axis=1)
-    return out, {"prefill_seconds": t_prefill, "decode_seconds": t_decode}
+        toks = torch.cat(toks, dim=1)
+        if mesh is not None:
+            toks = from_local(toks, mesh, logits.placements,
+                              (B, gen_len + 1)).full_tensor()
+    return toks.cpu().numpy(), {"prefill_seconds": t_prefill,
+                                "decode_seconds": t_decode}
 
 
 def main(argv=None):
@@ -137,9 +181,16 @@ def main(argv=None):
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.production_mesh or args.data_mesh * args.model_mesh != 1:
-        ap.error("serving runs on one device: its mesh path is not ported "
-                 "yet")
+    torchrun = "WORLD_SIZE" in os.environ
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.production_mesh:
+        mesh_of, procs = "the production mesh", 256
+    else:
+        mesh_of = f"--data-mesh {args.data_mesh} x --model-mesh {args.model_mesh}"
+        procs = args.data_mesh * args.model_mesh
+    if procs != world:
+        ap.error(f"{mesh_of} needs {procs} processes under torchrun, but the "
+                 f"world size (WORLD_SIZE) is {world}")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -151,8 +202,24 @@ def main(argv=None):
     B, P, G = args.batch, args.prompt_len, args.gen_len
     batch = prompt_batch(cfg, B, P, device)
     params = api.init(torch.Generator(device=device).manual_seed(0))
-    out, timings = serve_batch(api, params, batch, G, device)
+    mesh = rules = None
+    if torchrun:
+        init_distributed(device.type)
+        mesh = (make_production_mesh(device_type=device.type)
+                if args.production_mesh
+                else make_debug_mesh(args.data_mesh, args.model_mesh,
+                                     device_type=device.type))
+        rules = rules_for(cfg.arch)
+        params = shard_params(api, params, mesh, rules)
+    try:
+        out, timings = serve_batch(api, params, batch, G, device, mesh=mesh,
+                                   rules=rules)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
     t_prefill, t_decode = timings["prefill_seconds"], timings["decode_seconds"]
+    if int(os.environ.get("RANK", 0)) != 0:
+        return
 
     print(json.dumps({
         "arch": cfg.arch,

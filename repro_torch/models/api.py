@@ -36,6 +36,7 @@ class TorchModelApi:
     prefill: Callable                # (params, batch, Smax) -> (logits, cache)
     decode_step: Callable            # (params, cache, batch) -> (logits, cache)
     cache_specs: Callable            # (batch, seq) -> {name: BatchSpec}
+    cache_axes: Callable             # () -> {name: logical axes tuple}
     # (params, batch) -> (loss, metrics); None where training is not ported
     loss: Callable | None = None
     input_specs: Callable | None = None   # ShapeConfig -> {name: BatchSpec}

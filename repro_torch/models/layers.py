@@ -17,6 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distrib.collectives import gather_along
+from repro_torch.distrib.context import cache_split
+
 F32 = torch.float32
 NEG_INF = -1e30
 
@@ -190,30 +193,122 @@ def naive_attention(q, k, v, *, causal=True, window: int = 0, softcap=0.0,
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
-                     softcap: float = 0.0):
+                     softcap: float = 0.0, entry: str | None = None):
     """Single-token attention against a cache.
 
     q [B, 1, Hq, hd]; caches [B, Smax, Hkv, hd]; cache_len: a 0-d or [B]
     tensor — the number of valid cache entries (the new token's k/v already
     inserted).
+
+    ``entry`` names the cache entry the caches are a layer of.  Where the
+    installed sharded decode step splits it (``cache_split``), the caches
+    are this process's shard: split on the sequence dim, this process
+    attends over its own key range (global key positions, so the validity
+    mask and the window band are the whole cache's) and the ranges'
+    partials are combined by log-sum-exp over the split's group
+    (:func:`_combine`); split on the kv-head dim, it attends with its own
+    heads' queries and the heads' outputs are gathered.  Otherwise (one
+    device, a (1, 1) mesh) this is the plain single-cache softmax.
     """
+    seq = heads = None
+    if entry is not None:
+        seq, heads = cache_split(entry, 2), cache_split(entry, 3)
     B, Smax, Hkv, hd = k_cache.shape
-    Hq = q.shape[2]
-    G = Hq // Hkv
-    qg = q.reshape(B, Hkv, G, hd)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
-                     k_cache.float()) / math.sqrt(hd)
-    s = _softcap(s, softcap)
-    kpos = torch.arange(Smax, device=q.device)
+    if seq is None and heads is None:
+        Hq = q.shape[2]
+        G = Hq // Hkv
+        qg = q.reshape(B, Hkv, G, hd)
+        s = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                         k_cache.float()) / math.sqrt(hd)
+        s = _softcap(s, softcap)
+        valid = _key_mask(torch.arange(Smax, device=q.device), cache_len,
+                          window)
+        s = s.masked_fill(~valid[:, None, None], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+        return out.reshape(B, 1, Hq, hd)
+    if heads is not None:
+        G = q.shape[2] // heads.size
+        q = q[:, :, heads.start * G:heads.stop * G]
+    kpos = torch.arange(Smax, device=q.device) + (seq.start if seq else 0)
+    part = _partial_attention(q, k_cache, v_cache, cache_len, kpos,
+                              window=window, softcap=softcap)
+    out = _combine(part, seq.group if seq else None).to(v_cache.dtype)
+    out = out.reshape(B, 1, -1, hd)
+    return gather_along(out, heads.group, 2) if heads is not None else out
+
+
+def _key_mask(kpos, cache_len, window: int):
+    """[B or 1, keys]: the keys at (global) positions ``kpos`` that a
+    query at position cache_len - 1 sees; the same band as the prefill
+    mask."""
     clen = cache_len.reshape(-1, 1)
     valid = kpos[None, :] < clen
-    # query position is clen - 1; same band as the prefill mask
     if window > 0:
         valid = valid & (kpos[None, :] > clen - 1 - window)
-    s = s.masked_fill(~valid[:, None, None], NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(B, 1, Hq, hd)
+    return valid
+
+
+def _partial_attention(q, k, v, cache_len, kpos, *, window: int,
+                       softcap: float):
+    """One key range's attention partial, all f32 [B, Hkv, G, hd + 2]:
+    the row max m, the sum l of exp(s - m) and the unnormalised output
+    sum exp(s - m) v.  A range with no visible key has m = NEG_INF, which
+    the combine weighs by exp(NEG_INF - max) = 0."""
+    B, Sk, Hkv, hd = k.shape
+    G = q.shape[2] // Hkv
+    s = torch.einsum("bhgd,bkhd->bhgk", q.reshape(B, Hkv, G, hd).float(),
+                     k.float()) / math.sqrt(hd)
+    s = _softcap(s, softcap)
+    s = s.masked_fill(~_key_mask(kpos, cache_len, window)[:, None, None],
+                      NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    return torch.cat([m[..., None], p.sum(-1)[..., None], o], dim=-1)
+
+
+def _combine(part, group):
+    """Every key range's partial (gathered over ``group``: the only
+    exchange over the sequence dim, [B, Hkv, G, hd + 2] per range) merged
+    by log-sum-exp: out = sum_i exp(m_i - M) o_i / sum_i exp(m_i - M) l_i,
+    M = max_i m_i.  Returns [B, Hkv, G, hd] f32."""
+    parts = gather_along(part[None], group, 0)
+    m, l, o = parts[..., 0], parts[..., 1], parts[..., 2:]
+    w = torch.exp(m - m.amax(0))
+    return (o * w[..., None]).sum(0) / (l * w).sum(0)[..., None]
+
+
+def write_token(cache, new, at, *, entry: str | None = None):
+    """Write one token's k or v ``new`` [B, 1, Hkv, hd] IN PLACE into a
+    layer of cache ``entry``, ``cache`` [B, Smax, Hkv, hd], at position
+    ``at`` (0-d, or [B] per slot).  Where the sharded decode step splits
+    the entry (see ``decode_attention``), ``cache`` is this process's shard:
+    only the process whose key range holds ``at`` writes (the others write
+    back what they hold, so no step waits on a host sync), and each
+    writes its own heads."""
+    seq = heads = None
+    if entry is not None:
+        seq, heads = cache_split(entry, 2), cache_split(entry, 3)
+    if heads is not None:
+        new = new[:, :, heads.start:heads.stop]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    if seq is None:
+        if at.dim() == 0:
+            cache.index_copy_(1, at.reshape(1).long(), new)
+        else:
+            cache[rows, at.long()] = new[:, 0]
+        return
+    idx = at.long() - seq.start
+    inside = (idx >= 0) & (idx < seq.stop - seq.start)
+    idx = idx.clamp(0, seq.stop - seq.start - 1)
+    if at.dim() == 0:
+        idx = idx.reshape(1)
+        cache.index_copy_(1, idx, torch.where(
+            inside, new, cache.index_select(1, idx)))
+    else:
+        cache[rows, idx] = torch.where(inside[:, None, None], new[:, 0],
+                                       cache[rows, idx])
 
 
 # -------------------------------------------------------- chunked CE loss

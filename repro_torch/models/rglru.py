@@ -29,7 +29,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distrib.context import mesh_context, use_mesh_context
+from repro_torch.distrib.collectives import gather_along
+from repro_torch.distrib.context import (cache_split, mesh_context,
+                                         use_mesh_context)
 from repro_torch.kernels.rglru_scan.ops import lru_scan_vjp
 from repro_torch.models.api import (
     BatchSpec,
@@ -46,6 +48,7 @@ from repro_torch.models.layers import (
     rope_angles,
     softplus,
     unstack_layers,
+    write_token,
 )
 from repro_torch.models.transformer import _embed_scale
 
@@ -143,16 +146,37 @@ def _lru_step(x1, lp, h):
     return h_new.to(x1.dtype)[:, None], h_new
 
 
+def _lru_decode(u, lp, conv_state, h):
+    """The conv and one RG-LRU step of a decode: u [B, 1, W] ->
+    (r [B, 1, W], new conv state, new h).  Where the sharded decode step
+    splits the states' width (``mlp``), ``conv_state`` and ``h`` are this
+    process's slice: it runs the conv over its channels, gathers the conv
+    output (the gates mix every channel), and steps its slice of the
+    recurrence, whose outputs are gathered back to [B, 1, W]."""
+    sp = cache_split("h", 2)
+    if sp is None:
+        u, new_conv = _causal_conv(u, lp["conv"], conv_state)
+        r, new_h = _lru_step(u, lp, h)
+        return r, new_conv, new_h
+    w = slice(sp.start, sp.stop)
+    u_own, new_conv = _causal_conv(u[..., w], lp["conv"][:, w], conv_state)
+    u = gather_along(u_own, sp.group, 2)
+    a, b = _lru_gates(u, lp)
+    new_h = a[:, 0, w] * h.float() + b[:, 0, w]
+    return gather_along(new_h.to(u.dtype)[:, None], sp.group, 2), new_conv, \
+        new_h
+
+
 def _lru_block(x, lp, *, conv_state=None, h0=None, decode=False):
     """Full recurrent mixer: gelu gate branch * (conv -> rg-lru) branch."""
     h = rms_norm(x, lp["ln1"])
     # jax.nn.gelu defaults to the tanh approximation
     y = F.gelu(h @ lp["w_y"], approximate="tanh")
     u = h @ lp["w_x"]
-    u, new_conv = _causal_conv(u, lp["conv"], conv_state)
     if decode:
-        r, new_h = _lru_step(u, lp, h0)
+        r, new_conv, new_h = _lru_decode(u, lp, conv_state, h0)
     else:
+        u, new_conv = _causal_conv(u, lp["conv"], conv_state)
         r, new_h = _lru_scan(u, lp, h0)
     out = (r * y) @ lp["w_out"]
     return x + out, (new_conv, new_h)
@@ -263,6 +287,16 @@ def cache_specs(cfg: ModelConfig, B: int, Smax: int) -> dict[str, BatchSpec]:
     }
 
 
+def cache_axes(cfg: ModelConfig):
+    """The ring buffer's slots are ``kv_seq``; the recurrent and conv
+    states' width is ``mlp``."""
+    return {"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "h": ("layers", "batch", "mlp"),
+            "conv": ("layers", "batch", None, "mlp"),
+            "length": ()}
+
+
 def prefill(params, cfg: ModelConfig, batch, Smax: int | None = None):
     """Layer-by-layer prefill filling ring-buffer caches; returns
     (last-token logits [B, V] f32, cache).  As in the reference, a prompt
@@ -315,15 +349,19 @@ def decode_step(params, cfg: ModelConfig, cache, batch):
     token's k/v go to ring slot ``length % win``.  Unlike the reference,
     which returns a new cache, the k/v slot, the recurrent states ``h`` and
     the conv states are written into the cache's tensors IN PLACE; the
-    returned dict shares them and carries ``length + 1``."""
+    returned dict shares them and carries ``length + 1``.  Under the
+    sharded decode step the cache is this process's shard: the ring's
+    slots split on ``kv_seq``, ``h`` and ``conv`` on ``mlp``
+    (``_lru_decode``)."""
     B = batch["token"].shape[0]
-    win = cache["k"].shape[2]
+    sp = cache_split("k", 2)
+    win = sp.size if sp is not None else cache["k"].shape[2]
     length = cache["length"]
     x = _embed_scale(cfg, params["embed"][batch["token"].long()])
     sin, cos = rope_angles(batch["pos"][:, None], cfg.head_dim_,
                            cfg.rope_theta)
     Hq, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    slot = (length % win).reshape(1).long()
+    slot = length % win
     lru_i = attn_i = 0
     for kind in cfg.layer_kinds():
         if kind == "lru":
@@ -341,11 +379,12 @@ def decode_step(params, cfg: ModelConfig, cache, batch):
             k1 = apply_rope((h_in @ ap["wk"]).reshape(B, 1, KV, hd), sin, cos)
             v1 = (h_in @ ap["wv"]).reshape(B, 1, KV, hd)
             kc, vc = cache["k"][attn_i], cache["v"][attn_i]   # views
-            kc.index_copy_(1, slot, k1)
-            vc.index_copy_(1, slot, v1)
+            write_token(kc, k1, slot, entry="k")
+            write_token(vc, v1, slot, entry="v")
             # ring buffer: all filled slots are within the window by
             # construction, so plain length masking suffices
-            out = decode_attention(q, kc, vc, torch.clamp(length + 1, max=win))
+            out = decode_attention(q, kc, vc, torch.clamp(length + 1, max=win),
+                                   entry="k")
             x = x + out.reshape(B, 1, Hq * hd) @ ap["wo"]
             x = _mlp(x, ap)
             attn_i += 1
@@ -363,6 +402,7 @@ def build(cfg: ModelConfig) -> TorchModelApi:
         decode_step=lambda params, cache, batch: decode_step(params, cfg,
                                                              cache, batch),
         cache_specs=lambda B, Smax: cache_specs(cfg, B, Smax),
+        cache_axes=functools.partial(cache_axes, cfg),
         loss=lambda params, batch: loss_fn(params, cfg, batch),
         input_specs=functools.partial(token_batch_specs, cfg),
     )

@@ -40,6 +40,7 @@ from repro_torch.models.layers import (
     naive_attention,
     rms_norm,
     rope_angles,
+    write_token,
 )
 from repro_torch.models import moe as moe_lib
 
@@ -276,6 +277,14 @@ def cache_specs(cfg: ModelConfig, B: int, Smax: int) -> dict[str, BatchSpec]:
     }
 
 
+def cache_axes(cfg: ModelConfig):
+    """The cache's logical axes (the rule table shards them): the sequence
+    dim is ``kv_seq``."""
+    return {"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "length": ()}
+
+
 def prefill(params, cfg: ModelConfig, batch, Smax: int | None = None):
     """Full-sequence forward; returns (last-token logits [B, V] f32, filled
     cache).  ``batch`` holds ``tokens`` [B, S], or ``embeds`` [B, S, D] and
@@ -314,7 +323,9 @@ def decode_step(params, cfg: ModelConfig, cache, batch):
     Unlike the reference, which returns a new
     cache, the new token's k/v are written into ``cache["k"]`` and
     ``cache["v"]`` IN PLACE; the returned dict shares those tensors and
-    carries ``length + 1``."""
+    carries ``length + 1``.  Under the sharded decode step the cache is
+    this process's shard of the ``kv_seq``-split cache (``write_token``,
+    ``decode_attention``)."""
     if cfg.input_mode == "embeds" and "embeds" in batch:
         x, positions = _embed_in(params, cfg, batch)
     else:
@@ -325,20 +336,15 @@ def decode_step(params, cfg: ModelConfig, cache, batch):
     sin, cos = _angles(cfg, positions)
     length = cache["length"]
     B = x.shape[0]
-    rows = torch.arange(B, device=x.device)
     layers = _layer_params(params, cfg)
     for i, window in enumerate(_layer_windows(cfg)):
         lp = layers[i]
         q, k, v = _qkv(cfg, x, lp, sin, cos)
         kc, vc = cache["k"][i], cache["v"][i]          # views: [B, Smax, KV, hd]
-        if length.dim() == 0:
-            kc.index_copy_(1, length.reshape(1).long(), k)
-            vc.index_copy_(1, length.reshape(1).long(), v)
-        else:                                          # per-slot lengths [B]
-            kc[rows, length.long()] = k[:, 0]
-            vc[rows, length.long()] = v[:, 0]
+        write_token(kc, k, length, entry="k")
+        write_token(vc, v, length, entry="v")
         out = decode_attention(q, kc, vc, length + 1, window=window,
-                               softcap=cfg.attn_softcap)
+                               softcap=cfg.attn_softcap, entry="k")
         x = x + out.reshape(B, 1, -1) @ lp["wo"]
         x, _ = _ffn(cfg, x, lp)
     new_cache = {"k": cache["k"], "v": cache["v"], "length": length + 1}
@@ -355,6 +361,7 @@ def build(cfg: ModelConfig) -> TorchModelApi:
         decode_step=lambda params, cache, batch: decode_step(params, cfg,
                                                              cache, batch),
         cache_specs=lambda B, Smax: cache_specs(cfg, B, Smax),
+        cache_axes=functools.partial(cache_axes, cfg),
         loss=lambda params, batch: loss_fn(params, cfg, batch),
         input_specs=functools.partial(token_batch_specs, cfg),
     )

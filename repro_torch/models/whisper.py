@@ -43,6 +43,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_angles,
     unstack_layers,
+    write_token,
 )
 
 
@@ -197,6 +198,15 @@ def cache_specs(cfg: ModelConfig, B: int, Smax: int) -> dict[str, BatchSpec]:
     }
 
 
+def cache_axes(cfg: ModelConfig):
+    """Self-attention k/v on ``kv_seq``; the cross K/V on ``kv_heads``."""
+    return {"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "xk": ("layers", "batch", None, "kv_heads", None),
+            "xv": ("layers", "batch", None, "kv_heads", None),
+            "length": ()}
+
+
 def _logits(params, hidden):
     """The last position's f32 logits against the f32 table [B, V]."""
     return hidden[:, -1].float() @ params["embed"].float().t()
@@ -227,7 +237,10 @@ def decode_step(params, cfg: ModelConfig, cache, batch):
     out.  The new k/v are written into ``cache["k"]`` / ``cache["v"]`` at
     ``cache["length"]`` (0-d) IN PLACE; the cross-attention reads the fixed
     ``xk`` / ``xv`` over all Se frames.  Returns (logits, a dict sharing
-    the cache's tensors with ``length + 1``)."""
+    the cache's tensors with ``length + 1``).  Under the sharded decode
+    step the cache is this process's shard: k/v split on ``kv_seq``, the
+    cross K/V on ``kv_heads`` (``decode_attention`` attends with this
+    process's heads and gathers the heads' outputs)."""
     token = batch["token"]
     B = token.shape[0]
     Hq, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -235,7 +248,6 @@ def decode_step(params, cfg: ModelConfig, cache, batch):
     sin, cos = rope_angles(batch["pos"][:, None], cfg.head_dim_,
                            cfg.rope_theta)
     length = cache["length"]
-    at = length.reshape(1).long()
     frames = torch.full((), cache["xk"].shape[2], dtype=torch.int32,
                         device=x.device)
     for i, lp in enumerate(unstack_layers(params, "dec")):
@@ -244,15 +256,15 @@ def decode_step(params, cfg: ModelConfig, cache, batch):
         k1 = apply_rope((h @ lp["wk"]).reshape(B, 1, KV, hd), sin, cos)
         v1 = (h @ lp["wv"]).reshape(B, 1, KV, hd)
         kc, vc = cache["k"][i], cache["v"][i]          # views: [B, Smax, KV, hd]
-        kc.index_copy_(1, at, k1)
-        vc.index_copy_(1, at, v1)
-        out = decode_attention(q, kc, vc, length + 1)
+        write_token(kc, k1, length, entry="k")
+        write_token(vc, v1, length, entry="v")
+        out = decode_attention(q, kc, vc, length + 1, entry="k")
         x = x + out.reshape(B, 1, Hq * hd) @ lp["wo"]
         # cross attention against the fixed encoder K/V
         ek, ev = cache["xk"][i], cache["xv"][i]
         hx = rms_norm(x, lp["ln_x"])
         qx = (hx @ lp["xq"]).reshape(B, 1, Hq, hd)
-        outx = decode_attention(qx, ek, ev, frames)
+        outx = decode_attention(qx, ek, ev, frames, entry="xk")
         x = x + outx.reshape(B, 1, Hq * hd) @ lp["xo"]
         x = _mlp(x, lp)
     hidden = rms_norm(x, params["final_norm"])
@@ -270,6 +282,7 @@ def build(cfg: ModelConfig) -> TorchModelApi:
         decode_step=lambda params, cache, batch: decode_step(params, cfg,
                                                              cache, batch),
         cache_specs=lambda B, Smax: cache_specs(cfg, B, Smax),
+        cache_axes=functools.partial(cache_axes, cfg),
         loss=lambda params, batch: loss_fn(params, cfg, batch),
         input_specs=functools.partial(token_batch_specs, cfg),
     )

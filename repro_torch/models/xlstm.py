@@ -248,6 +248,16 @@ def cache_specs(cfg: ModelConfig, B: int, Smax: int) -> dict[str, BatchSpec]:
     }
 
 
+def cache_axes(cfg: ModelConfig):
+    return {"m_state": ("layers", "batch", "heads", None, None),
+            "m_norm": ("layers", "batch", "heads", None),
+            "s_c": ("layers", "batch", "embed"),
+            "s_n": ("layers", "batch", "embed"),
+            "s_h": ("layers", "batch", "embed"),
+            "s_m": ("layers", "batch", "embed"),
+            "length": ()}
+
+
 def _run(params, cfg: ModelConfig, tokens, cache, decode: bool):
     """Every layer over ``tokens`` [B, S] from ``cache`` (None: the zero
     state); returns (last-token logits [B, V] f32, the new state)."""
@@ -295,6 +305,7 @@ def build(cfg: ModelConfig) -> TorchModelApi:
         decode_step=lambda params, cache, batch: decode_step(params, cfg,
                                                              cache, batch),
         cache_specs=lambda B, Smax: cache_specs(cfg, B, Smax),
+        cache_axes=functools.partial(cache_axes, cfg),
         loss=lambda params, batch: loss_fn(params, cfg, batch),
         input_specs=functools.partial(token_batch_specs, cfg),
     )

@@ -30,7 +30,14 @@ compute's partitioning to GSPMD, and only the state's layout is part of its
 contract (and of the checkpoint).
 
 ``make_prefill_step`` and ``make_decode_step`` wrap ``api.prefill`` and
-``api.decode_step`` in the same context, on one process (a (1, 1) mesh).
+``api.decode_step`` in the same context: on one process, or on a mesh with
+the serving cache sharded by the rule table (``cache_shardings``: its
+sequence dim on ``kv_seq``, the model axis).  The sharded prefill repeats
+its compute over the model axis and keeps each process's box of the
+cache; the sharded decode computes on each process's cache shard and
+exchanges only per-token results (the sequence-parallel
+``decode_attention``'s log-sum-exp combine, the width-split RG-LRU
+step's and the cross-attention heads' gathers).
 """
 
 from __future__ import annotations
@@ -41,13 +48,15 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.distrib.context import MeshContext, use_mesh_context
+from repro_torch.distrib.context import (DimSplit, MeshContext,
+                                         use_mesh_context)
 from repro_torch.distrib.rules import (
     RuleTable,
     batch_shardings,
+    cache_shardings,
     from_local,
     local_box,
     mesh_shape,
@@ -110,6 +119,32 @@ def mesh_context_for(mesh, rules: RuleTable) -> MeshContext:
                        rules=rules)
 
 
+def _expert_arrays(api: TorchModelApi) -> set[str]:
+    """The parameters an expert-parallel MoE layer takes as this process's
+    experts (none unless the config runs ``moe_ffn_ep``)."""
+    moe = api.cfg.moe
+    if moe is None or moe.impl != "ep":
+        return set()
+    return {n for n, s in api.param_specs.items() if "experts" in s.axes}
+
+
+def _expert_placements(mesh, placements) -> list:
+    """``placements`` gathered over every mesh axis but the expert axis."""
+    names = list(mesh_shape(mesh))
+    return [p if names[i] == EP_AXIS else Replicate()
+            for i, p in enumerate(placements)]
+
+
+def _gather(name: str, p, mesh, experts: set[str]) -> torch.Tensor:
+    """What the forward on this process takes of DTensor parameter ``p``:
+    the whole array, or for an expert array (``experts``) this process's
+    experts, gathered over the other axes."""
+    if name not in experts:
+        return p.full_tensor()
+    return p.redistribute(placements=_expert_placements(mesh, p.placements)
+                          ).to_local()
+
+
 def _split_state(state):
     params = {k[len("params/"):]: v for k, v in state.items()
               if k.startswith("params/")}
@@ -165,7 +200,11 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
         loss, metrics = api.loss(leaves, batch)
         loss = loss.to(F32)
         names = sorted(leaves)
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        # a parameter the loss does not reach (the table of a model fed
+        # embeddings) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names],
+                                    allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), metrics, dict(zip(names, grads))
 
     def loss_and_grads(params, batch, device):
@@ -260,36 +299,22 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
             at += v.numel()
         return out
 
-    # the expert arrays an expert-parallel layer takes as this process's
-    # experts: gathered over every axis but the model axis
-    moe = api.cfg.moe
-    split = ({n for n, s in api.param_specs.items() if "experts" in s.axes}
-             if moe is not None and moe.impl == "ep" else set())
+    split = _expert_arrays(api)
     model_group = mesh.get_group(EP_AXIS) if sizes[EP_AXIS] > 1 else None
-
-    def expert_placements(placements):
-        names = list(sizes)
-        return [p if names[i] == EP_AXIS else Replicate()
-                for i, p in enumerate(placements)]
-
-    def gather(name, p):
-        if name not in split:
-            return p.full_tensor()
-        return p.redistribute(placements=expert_placements(p.placements)
-                              ).to_local()
 
     def own(name, g, p):
         """This process's shard of gradient ``g`` of parameter ``p``."""
         box = local_box(p.shape, mesh, p.placements)
         if name not in split:
             return g[box.slices()]
-        held = local_box(p.shape, mesh, expert_placements(p.placements))
+        held = local_box(p.shape, mesh, _expert_placements(mesh,
+                                                           p.placements))
         return g[tuple(slice(a - h, b - h) for a, b, h in
                        zip(box.start, box.stop, held.start))]
 
     def sharded_step_fn(state, batch):
         params, opt, step = _split_state(state)
-        full = {n: gather(n, p) for n, p in params.items()}
+        full = {n: _gather(n, p, mesh, split) for n, p in params.items()}
         local_step = step.to_local()
         loss, metrics, grads = loss_and_grads(full, batch,
                                               local_step.device)
@@ -323,39 +348,189 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
 
 
 # ------------------------------------------------------------------ serving
+#: the cache entries, and their dims, that the models' decode paths take
+#: split (``distrib/context.py::cache_split``): k/v on the sequence and the
+#: kv-head dims, whisper's cross K/V on kv heads, the RG-LRU states' width
+DECODE_SPLITS = {"k": (2, 3), "v": (2, 3), "xk": (3,), "xv": (3,),
+                 "h": (2,), "conv": (3,)}
+
+
 @dataclasses.dataclass
 class ServeStep:
-    """``fn(*args)`` under the step's ``MeshContext`` (``ctx``)."""
+    """``fn(*args)`` under the step's ``MeshContext`` (``ctx``).  A prefill
+    on a ``DeviceMesh`` says where its arrays live: the batch (this
+    process's rows of it) and the cache it returns (DTensors)."""
     fn: Callable
     ctx: MeshContext
+    mesh: object = None
+    batch_shardings: dict | None = None
+    cache_shardings: dict | None = None
 
     def __call__(self, *args):
         with use_mesh_context(self.ctx):
             return self.fn(*args)
 
 
-def _serve_context(api: TorchModelApi, mesh) -> MeshContext:
-    mesh = ONE_DEVICE if mesh is None else mesh
-    if math.prod(mesh_shape(mesh).values()) != 1:
-        raise NotImplementedError(
-            f"serving on a mesh of {mesh_shape(mesh)}: the sharded prefill "
-            f"and decode steps are not ported (ROADMAP Queue 1 item 4, the "
-            f"serve launcher's mesh path)")
-    return mesh_context_for(mesh, rules_for(api.cfg.arch))
+def _one_process(mesh) -> bool:
+    """True for no mesh or a mapping of one device; raises for a mapping of
+    several, which has no processes to serve on."""
+    if mesh is None or getattr(mesh, "mesh_dim_names", None) is not None:
+        return mesh is None
+    if math.prod(mesh_shape(mesh).values()) > 1:
+        raise ValueError(f"a mesh given as axis sizes {mesh_shape(mesh)} has "
+                         f"no processes to serve on: pass a DeviceMesh")
+    return True
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _batch_dim(axes) -> int | None:
+    return axes.index("batch") if "batch" in axes else None
+
+
+def _rows_entry(axes: dict) -> str:
+    """A cache entry with a batch dim: the per-row outputs (the logits) lie
+    over the processes as its rows do."""
+    return min(k for k, a in axes.items() if _batch_dim(a) is not None)
+
+
+def _row_placements(placements, batch_dim: int | None) -> list:
+    """The placements of a per-row output [B, ...] whose rows lie as dim
+    ``batch_dim`` of an array on ``placements`` lies."""
+    return [Shard(0) if p.is_shard() and p.dim == batch_dim else Replicate()
+            for p in placements]
+
+
+def _params_once(api: TorchModelApi, mesh):
+    """``full(params)``: every parameter as ``_gather`` gives it, gathered
+    once for the params dict the step last saw (serving does not change
+    its parameters)."""
+    experts, last = _expert_arrays(api), {}
+
+    def full(params):
+        if last.get("of") is not params:
+            last.clear()
+            last.update(of=params, full={n: _gather(n, p, mesh, experts)
+                                         for n, p in params.items()})
+        return last["full"]
+    return full
 
 
 def make_prefill_step(api: TorchModelApi, shape: ShapeConfig,
-                      cache_len: int | None = None, *, mesh=None
-                      ) -> ServeStep:
-    """prefill(params, batch) -> (logits, cache of ``cache_len`` or
-    ``shape.seq_len`` positions), on one process (``mesh`` of one device or
-    None)."""
+                      cache_len: int | None = None, *, mesh=None,
+                      rules: RuleTable | None = None) -> ServeStep:
+    """prefill(params, batch) -> (logits [B, V] f32, cache of ``cache_len``
+    or ``shape.seq_len`` positions).
+
+    Without a mesh (or on a mapping of one device) the arrays are plain
+    tensors.  On a ``DeviceMesh`` (with ``rules``, default
+    ``rules_for(api.cfg.arch)``): the parameters are DTensors, the batch
+    this process's rows; each process gathers the parameters, prefills
+    its rows (the flash kernel on the card) and keeps the box of the cache
+    that ``cache_shardings`` gives it.  The logits come out as a DTensor
+    of rows, the cache as DTensors.  The compute repeats over the model
+    axis (but an expert-parallel MoE layer's)."""
     Smax = cache_len or shape.seq_len
-    return ServeStep(fn=lambda params, batch: api.prefill(params, batch, Smax),
-                     ctx=_serve_context(api, mesh))
+    rules = rules or rules_for(api.cfg.arch)
+    ctx = mesh_context_for(ONE_DEVICE if mesh is None else mesh, rules)
+    if _one_process(mesh):
+        return ServeStep(fn=lambda params, batch: api.prefill(params, batch,
+                                                              Smax), ctx=ctx)
+    c_specs = api.cache_specs(shape.global_batch, Smax)
+    axes = api.cache_axes()
+    c_sh = cache_shardings(mesh, rules, c_specs, axes)
+    full = _params_once(api, mesh)
+    rows_of = _rows_entry(axes)
+    rows = _row_placements(c_sh[rows_of], _batch_dim(axes[rows_of]))
+
+    def own_box(name, t):
+        """This process's box of cache entry ``t``, computed for its rows
+        (whole in every other dim)."""
+        shape_, bdim = c_specs[name].shape, _batch_dim(axes[name])
+        box = local_box(shape_, mesh, c_sh[name])
+        if bdim is not None and t.shape[bdim] != box.shape[bdim]:
+            raise ValueError(f"{name}: {t.shape[bdim]} rows prefilled, the "
+                             f"cache's box holds {box.shape[bdim]}")
+        own = tuple(slice(None) if d == bdim else slice(a, b)
+                    for d, (a, b) in enumerate(zip(box.start, box.stop)))
+        return from_local(t[own].contiguous(), mesh, c_sh[name], shape_)
+
+    def sharded_prefill(params, batch):
+        logits, cache = api.prefill(full(params),
+                                    {k: _local(v) for k, v in batch.items()},
+                                    Smax)
+        return (from_local(logits, mesh, rows,
+                           (shape.global_batch, logits.shape[-1])),
+                {k: own_box(k, t) for k, t in cache.items()})
+
+    return ServeStep(fn=sharded_prefill, ctx=ctx, mesh=mesh,
+                     batch_shardings=batch_shardings(
+                         mesh, rules, api.input_specs(shape)),
+                     cache_shardings=c_sh)
 
 
-def make_decode_step(api: TorchModelApi, *, mesh=None) -> ServeStep:
+def decode_splits(api: TorchModelApi, mesh, cache) -> dict:
+    """{entry: {dim: DimSplit}} of a cache of DTensors on ``mesh``: every
+    dim but the batch one that a mesh axis of more than one process
+    shards.  Raises where a model's decode does not take that split
+    (``DECODE_SPLITS``)."""
+    axes, sizes = api.cache_axes(), mesh_shape(mesh)
+    names = list(sizes)
+    out = {}
+    for k, t in cache.items():
+        bdim = _batch_dim(axes[k])
+        over = [(p.dim, names[i]) for i, p in enumerate(t.placements)
+                if p.is_shard() and p.dim != bdim and sizes[names[i]] > 1]
+        if not over:
+            continue
+        dims = [d for d, _ in over]
+        if len(set(dims)) < len(dims) or any(
+                d not in DECODE_SPLITS.get(k, ()) for d in dims):
+            raise NotImplementedError(
+                f"{api.cfg.arch}: cache entry {k!r} sharded over {over} "
+                f"(dim, mesh axis): the decode step splits "
+                f"{DECODE_SPLITS.get(k, ())} of it, over one axis each")
+        box = local_box(t.shape, mesh, t.placements)
+        out[k] = {d: DimSplit(box.start[d], box.stop[d], int(t.shape[d]),
+                              mesh.get_group(a)) for d, a in over}
+    return out
+
+
+def make_decode_step(api: TorchModelApi, *, mesh=None,
+                     rules: RuleTable | None = None) -> ServeStep:
     """decode(params, cache, batch) -> (logits, cache): one new token per
-    sequence against the cache, on one process."""
-    return ServeStep(fn=api.decode_step, ctx=_serve_context(api, mesh))
+    sequence against the cache.
+
+    On a ``DeviceMesh`` the parameters and the cache are DTensors (the
+    cache on ``cache_shardings``, as the prefill step returns it) and the
+    batch is this process's rows.  Each process decodes its rows against
+    the cache shard it holds (``decode_splits``, read by the models through
+    the context): the sequence-parallel ``decode_attention`` and the
+    width-split RG-LRU step exchange per-token results over the model
+    axis, never a cache entry.  Returns the logits as a DTensor of rows and
+    the cache as DTensors on its placements."""
+    rules = rules or rules_for(api.cfg.arch)
+    ctx = mesh_context_for(ONE_DEVICE if mesh is None else mesh, rules)
+    if _one_process(mesh):
+        return ServeStep(fn=api.decode_step, ctx=ctx)
+    full = _params_once(api, mesh)
+    axes = api.cache_axes()
+    rows_of = _rows_entry(axes)
+    bdim = _batch_dim(axes[rows_of])
+
+    def sharded_decode(params, cache, batch):
+        split_ctx = dataclasses.replace(
+            ctx, cache_splits=decode_splits(api, mesh, cache))
+        with use_mesh_context(split_ctx):
+            logits, new = api.decode_step(
+                full(params), {k: v.to_local() for k, v in cache.items()},
+                {k: _local(v) for k, v in batch.items()})
+        return (from_local(logits, mesh, _row_placements(
+                    cache[rows_of].placements, bdim),
+                    (cache[rows_of].shape[bdim], logits.shape[-1])),
+                {k: from_local(t, mesh, cache[k].placements, cache[k].shape)
+                 for k, t in new.items()})
+
+    return ServeStep(fn=sharded_decode, ctx=ctx, mesh=mesh)

@@ -735,3 +735,100 @@ def test_fe_round_trip_n4_to_m1_lands_on_the_card(cuda, tmp_path):
     p = node_points(lspaces[0])
     want = np.sin(3 * p[:, 0]) * (2 + np.cos(5 * p[:, 1])) + p[:, 0] * p[:, 1]
     assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.fixture
+def one_card_mesh(cuda):
+    """A (1, 1) mesh of one NCCL process on the card; the group is gone
+    after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+
+    init_distributed("cuda", rank=0, world_size=1)
+    try:
+        yield make_debug_mesh(1, 1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["smollm_135m", "whisper_base"])
+def test_mesh_decode_at_one_card_is_the_one_device_decode(one_card_mesh,
+                                                          arch):
+    """The sharded prefill and decode steps on a (1, 1) mesh take the
+    one-device path bit for bit (no split: the plain ``decode_attention``),
+    f32 smoke config; and the sequence-parallel partial and combine of one
+    key range (no group) hold to the one-device attention within 1e-6 of
+    the f32 scale on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distrib.context import (DimSplit, MeshContext,
+                                             use_mesh_context)
+    from repro_torch.distrib.rules import rules_for
+    from repro_torch.launch.serve import greedy, shard_params
+    from repro_torch.models.api import build_model, make_token_batch
+    from repro_torch.models.layers import decode_attention
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    api, rules, B, P, G = build_model(cfg), rules_for(cfg.arch), 2, 8, 4
+    params = api.init(torch.Generator().manual_seed(0))
+    params = {k: v.cuda() for k, v in params.items()}
+    shape = ShapeConfig("p", P, B, "prefill")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_token_batch(cfg, shape, seed=0).items()}
+    mesh = one_card_mesh
+    sharded = shard_params(api, params, mesh, rules)
+    logits, cache = make_prefill_step(api, shape, P + G, mesh=mesh,
+                                      rules=rules)(sharded, batch)
+    want, plain = make_prefill_step(api, shape, P + G)(params, batch)
+    assert torch.equal(logits.to_local(), want)
+    decode, one = make_decode_step(api, mesh=mesh), make_decode_step(api)
+    tok = greedy(want)
+    for i in range(G):
+        step = {"token": tok, "pos": torch.full((B,), P + i,
+                                                dtype=torch.int32,
+                                                device="cuda")}
+        logits, cache = decode(sharded, cache, step)
+        want, plain = one(params, plain, step)
+        assert torch.equal(logits.to_local(), want), i
+        tok = greedy(want)
+    for k, v in plain.items():
+        assert torch.equal(cache[k].to_local(), v), k
+    q = torch.randn(B, 1, 4, 16, device="cuda")
+    kv = torch.randn(2, B, 12, 2, 16, device="cuda")
+    lens = torch.tensor([3, 12], dtype=torch.int32, device="cuda")
+    want = decode_attention(q, kv[0], kv[1], lens, window=5, softcap=5.0)
+    split = {"k": {2: DimSplit(0, 12, 12, None)}}
+    with use_mesh_context(MeshContext(mesh=mesh, cache_splits=split)):
+        got = decode_attention(q, kv[0], kv[1], lens, window=5, softcap=5.0,
+                               entry="k")
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_serve_launcher_mesh_path_on_one_card(cuda):
+    """``torchrun --nproc-per-node 1 -m repro_torch.launch.serve``: a world
+    of one under NCCL serves through the mesh path and prints the
+    reference launcher's keys with the card's name."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.serve",
+         "--arch", "smollm-135m", "--gen-len", "4"],
+        cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert {"arch", "batch", "prompt_len", "gen_len", "prefill_seconds",
+            "decode_seconds", "decode_tokens_per_s",
+            "sample_tokens"} <= set(line)
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert len(line["sample_tokens"]) == 5

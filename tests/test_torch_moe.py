@@ -26,6 +26,7 @@ import pytest
 import torch
 from helpers.ast_copy import normalised
 from jax.sharding import AxisType
+from torch.distributed.tensor import Shard
 
 import repro.configs.granite_moe_3b_a800m as ref_granite
 from repro.configs import get_config, get_smoke_config
@@ -52,6 +53,7 @@ from repro_torch.distrib import mesh_context
 from repro_torch.distrib.rules import placements_for, rules_for
 from repro_torch.launch import serve as torch_serve
 from repro_torch.launch import train as torch_train_launcher
+from repro_torch.launch.mesh import init_distributed, make_debug_mesh
 from repro_torch.models import moe
 from repro_torch.models.api import build_model as torch_build_model
 from repro_torch.train import schedule
@@ -413,8 +415,11 @@ def test_granite_prefill_and_decode_match_reference(impl, dtype):
 
 
 def test_serve_step_builders_install_the_context():
-    """The builders run their function under a (1, 1) context and refuse
-    larger meshes, naming the ROADMAP item."""
+    """The builders run their function under a (1, 1) context, and build on
+    a mesh of processes: on a (1, 1) ``DeviceMesh`` the prefill step
+    carries the rule table's cache placements (the sequence dim on the
+    model axis).  A mesh given as axis sizes of several devices, which has
+    no processes to run on, is refused."""
     tapi = torch_build_model(_variant(torch_smoke_config(ARCH), "ep"))
     seen = []
     step = make_prefill_step(dataclasses.replace(
@@ -426,10 +431,20 @@ def test_serve_step_builders_install_the_context():
     assert Smax == 12 and ctx.mesh == ONE_DEVICE and ctx.ep_axis == "model"
     assert ctx.dp_axes == ("data",)
     assert mesh_context() is None
+    init_distributed("cpu", rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        prefill = make_prefill_step(tapi, ShapeConfig("p", 8, 2, "prefill"),
+                                    mesh=mesh)
+        assert prefill.cache_shardings["k"] == [Shard(1), Shard(2)]
+        assert prefill.ctx.mesh is mesh and prefill.mesh is mesh
+        assert make_decode_step(tapi, mesh=mesh).mesh is mesh
+    finally:
+        torch.distributed.destroy_process_group()
     for build in (lambda m: make_prefill_step(
             tapi, ShapeConfig("p", 8, 2, "prefill"), mesh=m),
             lambda m: make_decode_step(tapi, mesh=m)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        with pytest.raises(ValueError, match="pass a DeviceMesh"):
             build({"data": 2, "model": 1})
 
 
