@@ -16,7 +16,8 @@ and the last two families: whisper-base (encoder-decoder) served,
 restarted and trained at full size, kimi-k2 served at one full-width layer
 and trained under Adafactor; the quickstart example; and serving on a
 mesh, a sharded KV cache served by 4 CPU processes and restored on the
-card.
+card; and tensor-parallel training, smollm-135m's heads, MLP and vocab
+split over 3 processes that share the card.
 
   device   the card's name and power limit (nvidia-smi);
   build    the hand-written kernels, compiled from this checkout's sources;
@@ -171,6 +172,16 @@ card.
            and re-saves the cache as one rank (ckpt_pack); then the serve
            launcher on the card in the environment ``torchrun
            --nproc-per-node 1`` gives it (a (1, 1) NCCL mesh).
+  tp_train  tensor-parallel training: smollm-135m at full width, 2
+           layers, B 4, S 2048, bf16, remat, deterministic mode, on a (1,
+           3) mesh of 3 processes that share the card (gloo, which takes
+           the card's tensors): each process computes on its own kv head
+           and 3 query heads (the flash forward and backward kernels,
+           counted per process), its third of the MLP and of the vocab; 3
+           steps held to the one-process card steps within CARD_RTOL; a
+           second run bit-equal; no parameter gathered over the model
+           axis (only activation bytes on its group); the TP state saved
+           through ckpt_pack and restored 3 -> 1 on the card bit for bit.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of a path that never launched fails the run (the fem,
@@ -179,8 +190,9 @@ repeated steps run no kernel: their counts are reported).  Every phase
 prints one JSON line, with its seconds; a failing phase raises and the
 script exits non-zero.
 Before the last line come the {"kernels": [...]} line (``launches`` summed
-over the paths that run the kernel) and the card's name and power limit;
-the last line is {"ok": true, "device": {...}}.  Needs one CUDA card (80 GB:
+over the paths that run the kernel), the card's name and power limit and
+then the script's own total seconds; the last line is {"ok": true,
+"device": {...}}.  Needs one CUDA card (80 GB:
 kimi-k2's one layer is 38.8 GB in bf16, seeded through a 22.5 GB f32
 draw; each model is freed before the next is seeded) and the repository
 around it; imports nothing of JAX.
@@ -406,7 +418,7 @@ WHISPER_STATE_DECODE = 8
 # (encoder and decoder layers; None: the full 6 + 6)
 WHISPER_TRAIN_B, WHISPER_TRAIN_S = 4, 448
 WHISPER_TRAIN_STEPS, WHISPER_REPEAT_STEPS = 4, 2
-WHISPER_RESUME_LAYERS = None
+WHISPER_RESUME_LAYERS = 2
 # kimi-k2 at full width with its depth cut from 61 layers to 1 (384
 # experts top-8, d_ff_expert 2,048, 64 heads over 8 kv heads at hd 128,
 # untied vocabulary 163,840: 19.4 G parameters, 38.8 GB of seeded bf16),
@@ -446,6 +458,22 @@ SERVE_MESH_LAYERS, SERVE_MESH_B, SERVE_MESH_P, SERVE_MESH_G = 2, 4, 64, 16
 SERVE_MESH_N, SERVE_MESH_CARD = (2, 2), (1, 1)
 SERVE_MESH_CARD_G = 8
 SERVE_MESH_TIMEOUT = 600
+# tensor-parallel training on a mesh of processes that share the card:
+# smollm-135m at full width, 2 of its 30 layers, B 4, S 2048, bf16, remat,
+# deterministic mode, on a (1, 3) mesh (each process holds one kv head and
+# its 3 query heads, 512 of the MLP's 1,536 columns and 16,384 of the
+# vocab); TP_STEPS steps, held to the one-process card steps from the same
+# seed within tests/test_torch_mesh_train.py's bf16 tolerances
+# (tests/helpers/torch_tp_workers.py's CARD_RTOL)
+TP_MESH, TP_LAYERS, TP_B, TP_S, TP_STEPS = (1, 3), 2, 4, 2048, 3
+TP_TIMEOUT = 600
+
+
+def tp_heads(cfg) -> tuple[int, int, int]:
+    """(Hq, Hkv, hd) of one ``tp_train`` process's attention: smollm's 9
+    query and 3 kv heads over the model axis of TP_MESH."""
+    m = TP_MESH[1]
+    return cfg.num_heads // m, cfg.num_kv_heads // m, cfg.head_dim_
 
 
 def emit(obj) -> None:
@@ -704,6 +732,7 @@ def check_flash_attention(cfg) -> dict:
         (1, 700, 700, 0, 256, 0.0, ()),    # sliding window
         (1, 333, 333, 0, 0, 50.0, ()),     # logit softcap
         (ELASTIC_B, ELASTIC_S, ELASTIC_S, 0, 0, 0.0, ()),  # the elastic step
+        (TP_B, TP_S, TP_S, 0, 0, 0.0, tp_heads(cfg)),  # a tp_train process
         (HD128[0], HD128[1], HD128[1], 0, 0, 0.0, HD128[2:]),
     ] + [(B, S, S, 0, 0, 0.0, h) for B, S, *h in GRANITE + DENSE + VLM] + [
         (1, P, P, 0, 0, 0.0, ()) for P in sorted({p for p, _ in REQUESTS})]
@@ -812,7 +841,8 @@ def _sdpa_bwd(q, k, v, do, backend):
 def check_flash_attention_bwd(cfg) -> dict:
     """The attention backward kernel (``flash_attention_bwd``, from the
     forward kernel's o and log-sum-exp) against ``attention_bwd_ref`` on
-    the same tensors, at smollm's train step, granite's, qwen3-4b's heads
+    the same tensors, at smollm's train step, one ``tp_train`` process's
+    heads (3 query over 1 kv), granite's, qwen3-4b's heads
     (hd 128), a ragged case with window, softcap and q_offset, and
     kimi_train's (hd 128, 64 query heads over 8); the
     forward's log-sum-exp against ``attention_lse_ref``'s; two launches
@@ -838,6 +868,7 @@ def check_flash_attention_bwd(cfg) -> dict:
         # B, Sq, Sk, Hq, Hkv, hd, q_offset, window, softcap
         (TRAIN_B, TRAIN_S, TRAIN_S, cfg.num_heads, cfg.num_kv_heads,
          cfg.head_dim_, 0, 0, 0.0),                      # smollm's step
+        (TP_B, TP_S, TP_S, *tp_heads(cfg), 0, 0, 0.0),  # a tp_train process
         (MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_S, 24, 8, 64, 0, 0, 0.0),
         (1, 512, 512, qwen.num_heads, qwen.num_kv_heads, qwen.head_dim_,
          0, 0, 0.0),                                     # hd 128
@@ -1537,50 +1568,56 @@ def decode_vs_prefill(api, params, tokens, kept, rtol: float,
 
 
 # ------------------------------------------------------------ train path
-def check_flash_vjp(cfg, device) -> dict:
+def check_flash_vjp(cfg, device) -> list[dict]:
     """dq, dk, dv of the kernel's autograd Function (the forward and
     backward kernels) against autograd through the plain blocked
-    ``flash_attention_xla`` at the train path's shape, on the same upstream
-    gradient; and against autograd through the plain f32 attention
-    (reported, not held: bf16 against f32)."""
+    ``flash_attention_xla`` on the same upstream gradient, at the train
+    path's shape and at one ``tp_train`` process's heads (3 query over 1
+    kv); and against autograd through the plain f32 attention (reported,
+    not held: bf16 against f32)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.layers import flash_attention_xla
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    shapes = [(TRAIN_B, TRAIN_S, cfg.num_heads, cfg.head_dim_)] + [
-        (TRAIN_B, TRAIN_S, cfg.num_kv_heads, cfg.head_dim_)] * 2
-    q, k, v, g = (torch.randn(s, generator=gen, device=device)
-                  .to(torch.bfloat16) for s in shapes + shapes[:1])
     blocks = dict(block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+    lines = []
+    for B, S, Hq, Hkv, hd in [
+            (TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_),
+            (TP_B, TP_S, *tp_heads(cfg))]:
+        shapes = [(B, S, Hq, hd)] + [(B, S, Hkv, hd)] * 2
+        q, k, v, g = (torch.randn(s, generator=gen, device=device)
+                      .to(torch.bfloat16) for s in shapes + shapes[:1])
 
-    def grads(fn, dtype=torch.bfloat16):
-        ts = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
-        return torch.autograd.grad(fn(*ts), ts, g.to(dtype))
+        def grads(fn, dtype=torch.bfloat16):
+            ts = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+            return torch.autograd.grad(fn(*ts), ts, g.to(dtype))
 
-    got = grads(lambda a, b, c: flash_attention_vjp(
-        a, b, c, True, 0, 0.0, cfg.attn_block_q, cfg.attn_block_k, 0))
-    want = grads(lambda a, b, c: flash_attention_xla(a, b, c, causal=True,
-                                                     **blocks))
-    exact = grads(lambda a, b, c: attention_ref(a, b, c, causal=True),
-                  torch.float32)
-    torch.cuda.synchronize()
-    line = {"shape": [TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads,
-                      cfg.head_dim_], "blocks": blocks,
-            "tolerance": {"atol": VJP_ATOL, "rtol": VJP_RTOL}}
-    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, exact):
-        a, b = a.float(), b.float()
-        err = (a - b).abs()
-        line[name] = {
-            "max_abs_err": float(err.max()),
-            "outside_tol": int((err > VJP_ATOL + VJP_RTOL * b.abs()).sum()),
-            "bit_equal": bool(torch.equal(a, b)),
-            "max_abs_err_vs_f32": float((a - c).abs().max()),
-            "max_abs_f32": float(c.abs().max())}
-        if line[name]["outside_tol"] or not torch.isfinite(a).all():
-            raise AssertionError(f"flash_attention_vjp {name} outside "
-                                 f"tolerance: {line[name]}")
-    return line
+        got = grads(lambda a, b, c: flash_attention_vjp(
+            a, b, c, True, 0, 0.0, cfg.attn_block_q, cfg.attn_block_k, 0))
+        want = grads(lambda a, b, c: flash_attention_xla(
+            a, b, c, causal=True, **blocks))
+        exact = grads(lambda a, b, c: attention_ref(a, b, c, causal=True),
+                      torch.float32)
+        torch.cuda.synchronize()
+        line = {"shape": [B, S, Hq, Hkv, hd], "blocks": blocks,
+                "tolerance": {"atol": VJP_ATOL, "rtol": VJP_RTOL}}
+        for name, a, b, c in zip(("dq", "dk", "dv"), got, want, exact):
+            a, b = a.float(), b.float()
+            err = (a - b).abs()
+            line[name] = {
+                "max_abs_err": float(err.max()),
+                "outside_tol": int((err > VJP_ATOL + VJP_RTOL * b.abs())
+                                   .sum()),
+                "bit_equal": bool(torch.equal(a, b)),
+                "max_abs_err_vs_f32": float((a - c).abs().max()),
+                "max_abs_f32": float(c.abs().max())}
+            if line[name]["outside_tol"] or not torch.isfinite(a).all():
+                raise AssertionError(f"flash_attention_vjp {name} outside "
+                                     f"tolerance: {line}")
+        lines.append(line)
+        del q, k, v, g, got, want, exact
+    return lines
 
 
 def kill_and_resume(api, B: int, S: int, store_dirs, device,
@@ -3400,7 +3437,120 @@ def serve_mesh_path(device, scratch: Path) -> dict:
     return launches
 
 
+def tp_train_path(device, scratch: Path) -> dict:
+    """The ``tp_train`` phase: TP_MESH's processes share the card
+    (``card_tp_train``: run A with each process's launch counts at 0 just
+    before it and read just after, its state saved through ckpt_pack, run
+    B bit-equal); then this process restores A's state 3 -> 1 on the card,
+    every process's shards bit-equal, and runs the one-process steps from
+    the same seed, which A's metrics, slots and updates must match within
+    CARD_RTOL.  Returns the launches of the TP run (summed over its
+    processes) and of the restore."""
+    from repro_torch.core.store import DatasetStore
+    from repro_torch.core.tensor_ckpt import TensorCheckpoint
+    from repro_torch.core.torch_io import load_torch
+    from repro_torch.launch.spawn import run_processes
+    from repro_torch.models.api import build_model
+    from repro_torch.train import AdamW, init_train_state
+
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from helpers.torch_tp_workers import (card_config, card_errors,
+                                          card_one_process, card_tp_train,
+                                          load_kept)
+
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="tp_store_", dir=scratch)
+    kept_dir = tempfile.mkdtemp(prefix="tp_kept_", dir=scratch)
+    n = TP_MESH[0] * TP_MESH[1]
+    try:
+        t0 = time.perf_counter()
+        ranks = run_processes(card_tp_train, n, (
+            TP_MESH, TP_LAYERS, TP_B, TP_S, TP_STEPS, SEED, store, kept_dir,
+            TRAIN_LR), timeout=TP_TIMEOUT, pg_timeout=TP_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        launches = {k: sum(r["launches"][k] for r in ranks)
+                    for k in ranks[0]["launches"]}
+        for r in ranks:
+            if not (r["launches"]["flash_attention"]
+                    and r["launches"]["flash_attention_bwd"]
+                    and r["launches"]["ckpt_pack"]):
+                raise AssertionError(f"rank {r['rank']} of the TP run "
+                                     f"launched {r['launches']}")
+            if r["model_bytes"]["parameter"] or \
+                    not r["model_bytes"]["activation"]:
+                raise AssertionError(f"rank {r['rank']} sent "
+                                     f"{r['model_bytes']} over the model axis")
+            if r["repeat_differs"] or not r["repeat_metrics_equal"]:
+                raise AssertionError(f"rank {r['rank']}: the second TP run "
+                                     f"differs in {r['repeat_differs']}")
+            if r["metrics"] != ranks[0]["metrics"]:
+                raise AssertionError("the TP processes' metrics differ")
+        kept = load_kept(kept_dir, n)
+
+        # ---- the restore 3 -> 1 on the card, one process
+        cfg = card_config(TP_LAYERS)
+        api = build_model(cfg)
+        zero, read, restore_launches = _counter()
+        t0 = time.perf_counter()
+        zero()
+        ck = TensorCheckpoint(DatasetStore(store, "r"))
+        target = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in init_train_state(
+                      api, AdamW(), torch.Generator().manual_seed(SEED)
+                  ).items()}
+        restored = load_torch(ck, target, TP_STEPS, device="cuda")
+        ck.store.close()
+        read()
+        restore_s = time.perf_counter() - t0
+        differ = sorted({k for r in kept for k, t in r["local"].items()
+                         if not _same_bits(
+                             restored[k][r["boxes"][k]].cpu(), t)})
+        if differ:
+            raise AssertionError(f"the 3 -> 1 restore differs in {differ}")
+
+        # ---- the one-process steps on the card, from the same seed
+        t0 = time.perf_counter()
+        one = card_one_process(TP_LAYERS, TP_B, TP_S, TP_STEPS, SEED,
+                               TRAIN_LR)
+        one_s = time.perf_counter() - t0
+        ratios = card_errors(ranks[0]["metrics"], kept, one)
+        worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:5]
+        if worst[0][1] > 1.0:
+            raise AssertionError(f"TP against the one-process steps, "
+                                 f"error / tolerance: {worst}")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(kept_dir, ignore_errors=True)
+    launches["ckpt_pack"] += restore_launches["ckpt_pack"]
+    emit({"phase": "tp_train", "arch": cfg.arch, "layers": TP_LAYERS,
+          "batch": TP_B, "seq": TP_S, "mesh": list(TP_MESH),
+          "processes": n, "backend": "gloo", "deterministic": True,
+          "local_params": ranks[0]["local_params"],
+          "local_shapes": ranks[0]["local_shapes"],
+          "losses": [m["loss"] for m in ranks[0]["metrics"]],
+          "one_process_losses": [h["loss"] for h in one[2]],
+          "worst_error_over_tolerance": worst,
+          "step_ms": [[t * 1e3 for t in r["step_seconds"]] for r in ranks],
+          "one_process_step_ms": one[3],
+          # run B: the exchanges timed with the card synchronised around
+          # each, and its steps' ms under those synchronisations
+          "exchange_ms_per_step": [r["exchange_seconds"] * 1e3 / TP_STEPS
+                                   for r in ranks],
+          "timed_step_ms": [[t * 1e3 for t in r["timed_step_seconds"]]
+                            for r in ranks],
+          "model_axis_bytes_per_process": [r["model_bytes"] for r in ranks],
+          "launches_per_process": [r["launches"] for r in ranks],
+          "repeat_bit_equal": True, "restore_3_to_1_bit_equal": True,
+          "save_seconds": max(r["save_seconds"] for r in ranks),
+          "restore_seconds": restore_s, "spawn_seconds": spawn_s,
+          "one_process_seconds": one_s,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
     if not (ROOT / "repro_torch" / "__init__.py").exists():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -3493,7 +3643,10 @@ def main(argv=None) -> int:
                          quickstart_path(device),
                          # ---- serving on a mesh: smollm's sharded cache
                          # 4 CPU processes -> the card, and the launcher
-                         serve_mesh_path(device, scratch)]
+                         serve_mesh_path(device, scratch),
+                         # ---- tensor-parallel training: 3 processes
+                         # share the card
+                         tp_train_path(device, scratch)]
     finally:
         for d in ([store_dir, hybrid_store, fem_store, moe_store, vlm_store]
                   + train_stores + recurrent_stores + whisper_stores
@@ -3528,6 +3681,7 @@ def main(argv=None) -> int:
                       for e in ({**e, "launches": launches[e["name"]]}
                                 for e in kernels)]})
     print(smi, flush=True)
+    emit({"total_seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -22,8 +22,15 @@ with one summary line on stdout:
   traffic; views and allocations move nothing), over the port's own
   one-device step on ``meta`` tensors at the per-device batch (the global
   batch over the batch axes' extent), with the config's remat and the
-  shape's step knobs.  This is what the port's sharded steps run on each
-  process today: the compute repeats over the model axis
+  shape's step knobs, as one process of the model axis runs it.  A
+  transformer-family train or prefill cell splits its compute over the
+  model axis as the sharded steps do (``"compute": "split over model"``):
+  the parameters it takes as this process's part (``api.split_params``)
+  are cut to it, and its model-axis collectives run on a counting
+  backend (``collectives.using``) that moves nothing and counts the bytes
+  this process would send (``comm_bytes_model``: activations, and the
+  parameters the step gathers over the model axis).  Every other cell
+  (the other families, every decode) repeats the compute over the model axis
   (``"compute": "repeated over model"``), but for an expert-parallel MoE
   layer, which runs this process's experts only (its collectives move no
   bytes of the count: they are communication).  The ``rglru_scan``
@@ -59,7 +66,9 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import get_config
 from repro_torch.configs.base import SHAPES, ShapeConfig, cell_is_applicable
 from repro_torch.configs.perf import step_knobs
-from repro_torch.distrib.context import MeshContext, use_mesh_context
+from repro_torch.distrib import collectives
+from repro_torch.distrib.context import (MeshContext, ModelAxis,
+                                         model_split, use_mesh_context)
 from repro_torch.distrib.rules import rules_for
 from repro_torch.models.api import BatchSpec, build_model
 from repro_torch.train.optim import make_optimizer
@@ -178,6 +187,30 @@ class Traffic(TorchDispatchMode):
         return out
 
 
+class _CountingBackend(collectives.Backend):
+    """A model axis of ``size`` processes seen from the one at coordinate
+    0, with no processes behind it: its exchanges count their bytes
+    (``collectives.traffic``) and move nothing."""
+
+    def __init__(self, size: int):
+        self._size = size
+
+    def key(self, group) -> tuple:
+        return ("counting", self._size)
+
+    def size(self, group) -> int:
+        return self._size
+
+    def rank(self, group) -> int:
+        return 0
+
+    def all_gather(self, parts, t, group) -> None:
+        pass
+
+    def all_to_all(self, out, t, group) -> None:
+        pass
+
+
 class _CountingMesh:
     """The production mesh's extents for the model code, with no
     processes behind it: an expert-parallel layer sizes its experts and
@@ -226,13 +259,19 @@ def _meta(specs) -> dict[str, torch.Tensor]:
                            device="meta") for n, s in specs.items()}
 
 
-def _per_process(specs: dict, ep: int) -> dict:
-    """``specs`` with every expert dim cut to one process's experts."""
+def _per_process(specs: dict, ep: int, local: dict, m: int) -> dict:
+    """``specs`` with every expert dim cut to one process's experts and
+    every parameter in ``local`` (name -> the dim the model axis splits)
+    cut to its part of the ``m`` on the model axis."""
     out = {}
     for n, s in specs.items():
+        d = None
         if "experts" in s.axes and ep > 1:
-            d = s.axes.index("experts")
-            s = dataclasses.replace(s, shape=s.shape[:d] + (s.shape[d] // ep,)
+            d, k = s.axes.index("experts"), ep
+        elif n in local:
+            d, k = local[n], m
+        if d is not None:
+            s = dataclasses.replace(s, shape=s.shape[:d] + (s.shape[d] // k,)
                                     + s.shape[d + 1:])
         out[n] = s
     return out
@@ -240,10 +279,25 @@ def _per_process(specs: dict, ep: int) -> dict:
 
 def count_step(cfg, shape: ShapeConfig, rules, sizes: dict, knobs: dict,
                rows: int) -> dict:
-    """FLOPs and bytes of one process's step at ``rows`` rows, on meta."""
+    """FLOPs and bytes of one process's step at ``rows`` rows, on meta; the
+    bytes it sends over the model axis where it splits its compute over
+    it."""
     api = build_model(cfg)
+    m = sizes["model"]
+    split = (shape.kind != "decode" and api.split_params is not None
+             and m > 1 and "model" not in rules.batch_axes)
+    group = "model"             # the counting backend's only group
     ctx = MeshContext(mesh=_CountingMesh(sizes), dp_axes=rules.batch_axes,
-                      ep_axis="model", rules=rules)
+                      ep_axis="model", rules=rules,
+                      model=ModelAxis(group, m, 0) if split else None)
+    # each parameter's dim the rule table splits over the model axis
+    dims, names = {}, set()
+    counting = _CountingBackend(m)
+    if split:
+        with use_mesh_context(ctx):
+            names = api.split_params()
+            dims = {n: model_split(s.axes, s.shape)
+                    for n, s in api.param_specs.items()}
 
     def within(fn):
         def run(*args):
@@ -252,15 +306,18 @@ def count_step(cfg, shape: ShapeConfig, rules, sizes: dict, knobs: dict,
         return run
     ep = (sizes["model"] if cfg.moe is not None and cfg.moe.impl == "ep"
           and cfg.moe.num_experts_padded % sizes["model"] == 0 else 1)
+    whole = api.param_specs
     api = dataclasses.replace(
-        api, param_specs=_per_process(api.param_specs, ep),
+        api, param_specs=_per_process(api.param_specs, ep,
+                                      {n: dims[n] for n in names}, m),
         loss=within(api.loss), prefill=within(api.prefill),
         decode_step=within(api.decode_step))
     local = ShapeConfig(shape.name, shape.seq_len, rows, shape.kind)
     params = _meta(api.param_specs)
     traffic = Traffic()
-    with _scan_stand_in(traffic), FlopCounterMode(display=False) as fc, \
-            traffic:
+    collectives.traffic.reset()
+    with _scan_stand_in(traffic), collectives.using(counting), \
+            FlopCounterMode(display=False) as fc, traffic:
         if shape.kind == "train":
             opt = make_optimizer(cfg.optimizer)
             step = make_train_step(
@@ -278,9 +335,23 @@ def count_step(cfg, shape: ShapeConfig, rules, sizes: dict, knobs: dict,
                            "pos": BatchSpec((rows,), "int32")})
             with torch.inference_mode():
                 make_decode_step(api)(params, cache, batch)
-    return {"flops": float(fc.get_total_flops()), "bytes": float(traffic.bytes),
-            "experts_per_process": (cfg.moe.num_experts_padded // ep
-                                    if cfg.moe is not None else None)}
+        sent = collectives.traffic.of(group, "activation")
+    out = {"flops": float(fc.get_total_flops()),
+           "bytes": float(traffic.bytes),
+           "experts_per_process": (cfg.moe.num_experts_padded // ep
+                                   if cfg.moe is not None else None),
+           "compute": "split over model" if split else "repeated over model"}
+    if split:
+        # the step gathers each parameter the rule splits over the model
+        # axis that its op takes whole: this process sends its part to
+        # each of the others
+        gathered = sum(math.prod(s.shape) * _itemsize(s.dtype) // m * (m - 1)
+                       for n, s in whole.items()
+                       if n not in names and "experts" not in s.axes
+                       and dims[n] is not None)
+        out["comm_bytes_model"] = {
+            "activation": sent, "parameter": gathered}
+    return out
 
 
 def static_record(arch: str, shape_name: str, mesh_tag: str) -> dict:
@@ -317,7 +388,6 @@ def run_cell(arch: str, shape_name: str, mesh_tag: str, force: bool = False,
     t0 = time.time()
     shape = SHAPES[shape_name]
     record.update(cell_state(arch, shape_name, mesh_tag))
-    record["compute"] = "repeated over model"
     cfg, knobs = _cfg_for(arch, shape, mesh_tag)
     rules = rules_for(cfg.arch, multi_pod=mesh_tag == "multi",
                       shape_name=shape_name)
@@ -327,7 +397,7 @@ def run_cell(arch: str, shape_name: str, mesh_tag: str, force: bool = False,
         record["status"] = "ok"
     except Exception as e:                               # noqa: BLE001
         record.update(flops=None, bytes=None, status="ok",
-                      null_reason=f"{type(e).__name__}: {e}")
+                      compute=None, null_reason=f"{type(e).__name__}: {e}")
     record["total_seconds"] = round(time.time() - t0, 1)
     out_path.write_text(json.dumps(record, indent=1))
     return record

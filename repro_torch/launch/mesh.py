@@ -86,6 +86,13 @@ def _mesh(device_type: str, shape: tuple[int, ...], axes: tuple[str, ...]):
     if have != need:
         raise ValueError(f"mesh {dict(zip(axes, shape))} needs a world size "
                          f"of {need}; this run has {have} process(es)")
+    if device_type == "cuda":
+        # the card ``LOCAL_RANK`` selects, as ``init_distributed("cuda")``
+        # does (several processes may share one card); ``DeviceMesh`` would
+        # otherwise select card ``LOCAL_RANK`` itself
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+        torch.cuda.init()
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 

@@ -7,7 +7,8 @@ through a file under a fresh directory, so concurrent runs never share a
 port), calls ``fn(*args)`` in each and returns the values in rank order.
 Each process's output goes to its own log file; when a process raises,
 dies or outlives ``timeout``, every process is stopped and the error
-carries every process's log.  ``fn`` must be importable by name (a
+carries every process's log, with every thread's stack of each process
+still running as it stood.  ``fn`` must be importable by name (a
 module-level function).  With ``init=False`` the processes get the
 environment ``torchrun`` gives (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``) and ``fn`` starts the group itself.
@@ -15,9 +16,11 @@ environment ``torchrun`` gives (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 
 from __future__ import annotations
 
+import faulthandler
 import os
 import pickle
 import shutil
+import signal
 import tempfile
 import time
 import traceback
@@ -35,6 +38,9 @@ def _entry(rank, fn, args, world, workdir, threads, pg_timeout, port):
     os.dup2(log.fileno(), 2)
     import sys
     sys.stdout = sys.stderr = log
+    # the parent asks for every thread's stack before it kills a process
+    # that outlived the run's timeout
+    faulthandler.register(signal.SIGUSR1, file=log, all_threads=True)
     # one host: keep gloo on the loopback interface
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
@@ -58,6 +64,11 @@ def _entry(rank, fn, args, world, workdir, threads, pg_timeout, port):
         traceback.print_exc()
     with open(workdir / f"rank{rank}.pkl", "wb") as f:
         pickle.dump(result, f)
+    log.flush()
+    if result[0] != "ok":
+        # exit at once, without the group's teardown (its peers may wait in
+        # a collective): the parent sees the exit and stops them all
+        os._exit(1)
     if dist.is_initialized():
         dist.destroy_process_group()
     log.flush()
@@ -102,6 +113,10 @@ def run_processes(fn, nprocs: int, args: tuple = (), *,
                         f"{nprocs} processes of {fn.__name__} ran past "
                         f"{timeout} s")
         except BaseException as e:
+            for p in ctx.processes:
+                if p.is_alive():
+                    os.kill(p.pid, signal.SIGUSR1)
+            time.sleep(2)
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()

@@ -40,6 +40,10 @@ class TorchModelApi:
     # (params, batch) -> (loss, metrics); None where training is not ported
     loss: Callable | None = None
     input_specs: Callable | None = None   # ShapeConfig -> {name: BatchSpec}
+    # () -> the parameters the loss and prefill take as this process's part
+    # of their split over the installed context's model axis; None for a
+    # family whose compute repeats over that axis
+    split_params: Callable | None = None
 
     def init(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
         """Random parameters on the generator's device: the reference's

@@ -17,8 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distrib.collectives import gather_along
-from repro_torch.distrib.context import cache_split
+from repro_torch.distrib.collectives import all_max, gather_along
+from repro_torch.distrib.context import DimSplit, cache_split, shard_hint
+from repro_torch.distrib.tensor_parallel import reduce_from_group
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -116,7 +117,12 @@ def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
     the reference, QK^T accumulates in f32 and P is cast to v's dtype
     before the PV product.  Differentiable: the port's
     ``flash_attention_vjp`` takes its backward from autograd through this
-    function, as the reference's does through its own.
+    function, as the reference's does through its own.  The reference's
+    hints on the q and k/v blocks place them by kv heads (else by each kv
+    head's group); the transformer places its q, k and v so
+    (``models/transformer.py::_attention_heads``) before it picks among
+    this, the kernel and naive attention, so this gets this process's
+    heads.
     """
     B, Sq, Hq, hd = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -313,13 +319,20 @@ def write_token(cache, new, at, *, entry: str | None = None):
 
 # -------------------------------------------------------- chunked CE loss
 def chunked_softmax_xent(hidden, embed_t, targets, mask, *, chunk: int = 0,
-                         softcap: float = 0.0):
+                         softcap: float = 0.0, vocab: DimSplit | None = None):
     """Cross-entropy over a huge vocab without materialising [B, S, V].
 
     hidden [B, S, D]; embed_t [D, V]; targets/mask [B, S].  Runs over S in
     chunks; under autograd each chunk is checkpointed, so its f32 logits
     live only inside the chunk (recomputed in the backward pass), as the
     reference's ``jax.checkpoint`` body does.  Returns (sum loss, sum mask).
+
+    ``vocab``: the vocab dim split over the model axis (the reference's hint
+    on the logits, ``("batch", None, "vocab")``): ``embed_t`` is this
+    process's columns [D, stop - start] of the table, and the log-sum-exp
+    is the max and the sum of exponentials over the group, each target's
+    logit taken on the process that holds it and summed (the same total on
+    every process).  ``hidden`` must come in through ``copy_to_group``.
     """
     B, S, D = hidden.shape
     if not chunk or chunk >= S:
@@ -333,8 +346,21 @@ def chunked_softmax_xent(hidden, embed_t, targets, mask, *, chunk: int = 0,
 
     def body(h, t, m):
         logits = _softcap(h.float() @ embed_t.float(), softcap)
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+        if vocab is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+            return ((lse - picked) * m).sum()
+        logits = shard_hint(logits, ("batch", None, "vocab"),
+                            (*logits.shape[:2], vocab.size))
+        top = all_max(logits.detach().amax(-1), vocab.group)
+        lse = torch.log(reduce_from_group(
+            torch.exp(logits - top[..., None]).sum(-1), vocab.group)) + top
+        idx = t.long() - vocab.start
+        inside = (idx >= 0) & (idx < vocab.stop - vocab.start)
+        picked = torch.gather(logits, -1, idx.clamp(
+            0, vocab.stop - vocab.start - 1)[..., None])[..., 0]
+        picked = reduce_from_group(torch.where(inside, picked, 0.0),
+                                   vocab.group)
         return ((lse - picked) * m).sum()
 
     total = torch.zeros((), dtype=F32, device=hidden.device)

@@ -10,7 +10,7 @@ so every model shard routes the same tokens, keeps the choices that hit its
 own experts, puts them into a capacity buffer by sorted position-in-expert,
 runs its experts, gathers the results back and sums them over the model
 axis.  Where the reference's body runs under ``shard_map``, this one runs
-on every process with the boundaries of ``distrib/collectives.py``: the
+on every process with the boundaries of ``distrib/tensor_parallel.py``: the
 replicated tokens and gates are copied onto the model axis after routing
 (their gradients summed over it), the partial outputs are reduced from it,
 and the aux loss's fractions are averaged over the batch axes.
@@ -34,11 +34,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distrib.collectives import (
-    copy_to_group,
-    mean_over_groups,
-    reduce_from_group,
-)
+from repro_torch.distrib.collectives import mean_over_groups
+from repro_torch.distrib.tensor_parallel import (copy_to_group,
+                                                 reduce_from_group)
 from repro_torch.distrib.rules import mesh_shape
 
 F32 = torch.float32

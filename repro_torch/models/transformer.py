@@ -11,10 +11,26 @@ slices, and where it wraps a layer (or a group of layers) in
 the expert-parallel ``moe_ffn_ep`` when its config asks for it and a step
 builder has installed a ``MeshContext``, else the dense one-hot ``moe_ffn``,
 as in the reference.
+
+Where the sharded train or prefill step splits the compute over the model
+axis (the context's ``ModelAxis``), each activation lies where the
+reference's ``shard_hint`` puts it (the rule table: heads, kv heads, the
+MLP hidden and the vocab on ``model``; see :class:`_Split`).  The
+products whose weight is stored split as their activation is run on this
+process's part of the weight (:func:`split_params`: the step hands those
+over unsplit on ``model``, every other parameter whole): q, k and v on
+this process's heads, the attention on its heads, ``wo`` and ``w_down``
+row-split with their partial sums reduced by the residual's hint, the
+embedding looked up in this process's vocab range and reduced, and the
+loss and the prefill's logits vocab-parallel.  A value held whole that
+feeds split work enters through ``copy_to_group``, so its gradient sums
+the processes' parts.  With no model axis every split is off and the
+functions run the one-device ops.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -23,7 +39,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distrib.context import mesh_context, use_mesh_context
+from repro_torch.distrib.context import (mesh_context, model_axis,
+                                         model_split, shard_hint, split_of,
+                                         use_mesh_context)
+from repro_torch.distrib.tensor_parallel import (copy_to_group,
+                                                 gather_from_group)
 from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
 from repro_torch.models.api import (
     BatchSpec,
@@ -103,46 +123,177 @@ def _layer_params(params, cfg: ModelConfig) -> list[dict[str, torch.Tensor]]:
     return [{k: per_key[k][i] for k in keys} for i in range(cfg.num_layers)]
 
 
+# ------------------------------------------------------ tensor parallelism
+@dataclasses.dataclass(frozen=True)
+class _Split:
+    """What the installed context splits over the model axis, by the
+    reference's hints, and where a product runs on this process's part of
+    its weight (the weight stored split as the activation it gives or
+    takes): ``q`` (q [B, S, Hq, hd] on heads, ``wq``'s columns), ``kv``
+    (k and v on kv heads, ``wk``/``wv``'s columns), ``attn`` (the
+    attention's heads: on whole kv heads, "kv"; on each kv head's group of
+    query heads, "group"; else None, every head on every process),
+    ``out`` (the attention output [B, S, Hq * hd] on its columns, ``wo``'s
+    rows), ``mlp`` (the dense MLP's hidden, ``w_gate``/``w_up``'s columns
+    and ``w_down``'s rows) and ``vocab`` (the logits on the vocab, the
+    table's rows); ``group`` is the model axis's."""
+    q: bool = False
+    kv: bool = False
+    attn: str | None = None
+    out: bool = False
+    mlp: bool = False
+    vocab: bool = False
+    group: object = None
+
+
+#: no split: the one-device ops (no model axis, and every decode step)
+NO_SPLIT = _Split()
+
+
+def _split(cfg: ModelConfig) -> _Split:
+    """The step's split under the installed context: the loss and the
+    prefill work it out once and hand it down."""
+    ax = model_axis()
+    if ax is None:
+        return NO_SPLIT
+    D, Hq, KV, hd, Fd, V, L = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.head_dim_, cfg.d_ff, cfg.vocab,
+                               cfg.num_layers)
+
+    def on(act_axes, act_shape, *weights):
+        """The activation is split and each (axes, shape, dim) weight is
+        stored split on that dim."""
+        return model_split(act_axes, act_shape) is not None and all(
+            model_split(a, w) == d for a, w, d in weights)
+
+    attn = model_split(_QB_AXES, (1, 1, KV, Hq // KV, hd))
+    return _Split(
+        q=on(("batch", None, "heads", None), (1, 1, Hq, hd),
+             (("layers", "embed", "heads"), (L, D, Hq * hd), 2)),
+        kv=on(("batch", None, "kv_heads", None), (1, 1, KV, hd),
+              (("layers", "embed", "kv_heads"), (L, D, KV * hd), 2)),
+        attn={2: "kv", 3: "group"}.get(attn),
+        out=on(("batch", None, "heads"), (1, 1, Hq * hd),
+               (("layers", "heads", "embed"), (L, Hq * hd, D), 1)),
+        mlp=cfg.moe is None and on(
+            ("batch", None, "mlp"), (1, 1, Fd),
+            (("layers", "embed", "mlp"), (L, D, Fd), 2),
+            (("layers", "mlp", "embed"), (L, Fd, D), 1)),
+        vocab=on(("batch", None, "vocab"), (1, 1, V),
+                 (("vocab", "embed"), (V, D), 0)),
+        group=ax.group)
+
+
+def split_params(cfg: ModelConfig) -> set[str]:
+    """The parameters the loss and the prefill take as this process's part
+    of their model split under the installed context (each as the step
+    holds it, gathered over the other axes); they take every other
+    parameter whole."""
+    s = _split(cfg)
+    names = ({"wq"} if s.q else set()) | ({"wk", "wv"} if s.kv else set())
+    names |= ({"wo"} if s.out else set())
+    names |= set(_FFN_KEYS) if s.mlp else set()
+    if s.vocab:
+        names |= {"embed"} if cfg.tie_embeddings else {"embed", "unembed"}
+    return names
+
+
+#: the reference's hints on the blocked attention's q and k/v blocks
+#: (``flash_attention_xla``), on the [B, S, Hkv, G, hd] and [B, S, Hkv, hd]
+#: views every attention path here takes them in
+_QB_AXES = ("batch", None, "kv_heads", "heads", None)
+_KB_AXES = ("batch", None, "kv_heads", None)
+
+
+def _whole(x, group, dim: int, size: int):
+    """``x``, gathered along ``dim`` where it holds a part of ``size``."""
+    return x if x.shape[dim] == size else gather_from_group(x, group, dim)
+
+
 # ------------------------------------------------------------ forward core
-def _qkv(cfg: ModelConfig, x, lp, sin, cos):
+def _qkv(cfg: ModelConfig, x, lp, sin, cos, *, s: _Split = NO_SPLIT):
+    """q [B, S, Hq, hd], k and v [B, S, Hkv, hd] of the layer, each this
+    process's box by its hint."""
     B, S, _ = x.shape
     Hq, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     h = rms_norm(x, lp["ln1"])
-    q = (h @ lp["wq"]).reshape(B, S, Hq, hd)
-    k = (h @ lp["wk"]).reshape(B, S, KV, hd)
-    v = (h @ lp["wv"]).reshape(B, S, KV, hd)
+    hs = copy_to_group(h, s.group) if s.q or s.kv else h
+    q = ((hs if s.q else h) @ lp["wq"]).reshape(B, S, -1, hd)
+    k = ((hs if s.kv else h) @ lp["wk"]).reshape(B, S, -1, hd)
+    v = ((hs if s.kv else h) @ lp["wv"]).reshape(B, S, -1, hd)
+    q = shard_hint(q, ("batch", None, "heads", None), (B, S, Hq, hd))
+    k = shard_hint(k, ("batch", None, "kv_heads", None), (B, S, KV, hd))
+    v = shard_hint(v, ("batch", None, "kv_heads", None), (B, S, KV, hd))
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"])
-        k = rms_norm(k, lp["k_norm"])
+        # a norm weight applied to this process's heads: its gradient
+        # sums the processes' parts
+        q = rms_norm(q, lp["q_norm"] if q.shape[2] == Hq
+                     else copy_to_group(lp["q_norm"], s.group))
+        k = rms_norm(k, lp["k_norm"] if k.shape[2] == KV
+                     else copy_to_group(lp["k_norm"], s.group))
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
+def _attention_heads(cfg: ModelConfig, s: _Split, q, k, v):
+    """q, k, v on the attention's heads (``s.attn``): split on kv heads as
+    their hints left them; or q gathered and each kv head's group split;
+    or every head whole."""
+    B, S = q.shape[:2]
+    Hq, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    G = Hq // KV
+    if s.attn != "kv":
+        q = _whole(q, s.group, 2, Hq)
+    q = shard_hint(q.reshape(B, S, -1, G, hd), _QB_AXES,
+                   (B, S, KV, G, hd)).reshape(B, S, -1, hd)
+    k = shard_hint(k, _KB_AXES, (B, S, KV, hd))
+    v = shard_hint(v, _KB_AXES, (B, S, KV, hd))
+    return q, k, v
+
+
+def _attention_out(cfg: ModelConfig, s: _Split, out):
+    """The attention output [B, S, Hq * hd] by its hint, from the
+    attention's heads: this process's columns where ``wo``'s rows are
+    split as they are, else whole."""
+    B, S = out.shape[:2]
+    Hq, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    if s.attn == "group":
+        out = gather_from_group(out.reshape(B, S, KV, -1, hd), s.group, 3)
+    out = shard_hint(out.reshape(B, S, -1), ("batch", None, "heads"),
+                     (B, S, Hq * hd))
+    return out if s.out else _whole(out, s.group, 2, Hq * hd)
+
+
 def _attention(cfg: ModelConfig, x, lp, sin, cos, *, window: int,
-               q_offset: int = 0):
-    B, S, _ = x.shape
-    q, k, v = _qkv(cfg, x, lp, sin, cos)
+               q_offset: int = 0, s: _Split = NO_SPLIT):
+    B, S, D = x.shape
+    q, k, v = _qkv(cfg, x, lp, sin, cos, s=s)
+    qa, ka, va = _attention_heads(cfg, s, q, k, v)
     if cfg.attention_impl == "naive":
-        out = naive_attention(q, k, v, causal=True, window=window,
+        out = naive_attention(qa, ka, va, causal=True, window=window,
                               softcap=cfg.attn_softcap, q_offset=q_offset)
     elif (cfg.attention_impl == "pallas"
           and cfg.layer_pattern == "all_global"):
         # the hand-written kernel (its plain version on CPU tensors) under
         # autograd; as in the reference it takes one static window, so it
         # engages for uniform-window patterns only
-        out = flash_attention_vjp(q, k, v, True, 0, cfg.attn_softcap,
+        out = flash_attention_vjp(qa, ka, va, True, 0, cfg.attn_softcap,
                                   cfg.attn_block_q, cfg.attn_block_k,
                                   int(q_offset))
     else:
-        out = flash_attention_xla(q, k, v, causal=True, window=window,
+        out = flash_attention_xla(qa, ka, va, causal=True, window=window,
                                   softcap=cfg.attn_softcap,
                                   block_q=cfg.attn_block_q,
                                   block_k=cfg.attn_block_k,
                                   q_offset=q_offset)
-    return x + out.reshape(B, S, -1) @ lp["wo"], (k, v)
+    out = _attention_out(cfg, s, out)
+    y = shard_hint(out @ lp["wo"], ("batch", None, None), (B, S, D),
+                   partial=s.out)
+    return x + y, (k, v)
 
 
-def _ffn(cfg: ModelConfig, x, lp):
+def _ffn(cfg: ModelConfig, x, lp, *, s: _Split = NO_SPLIT):
     """x + the layer's FFN of x, and the FFN's aux loss (0 when dense)."""
+    B, S, D = x.shape
     h = rms_norm(x, lp["ln2"])
     if cfg.moe is not None:
         ctx = mesh_context()
@@ -160,10 +311,15 @@ def _ffn(cfg: ModelConfig, x, lp):
                 capacity_factor=cfg.moe.capacity_factor,
                 num_real=cfg.moe.num_experts)
     else:
-        y = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
+        # column- then row-split over the model axis where s.mlp
+        hs = copy_to_group(h, s.group) if s.mlp else h
+        y = F.silu(hs @ lp["w_gate"]) * (hs @ lp["w_up"])
+        if s.mlp:
+            y = shard_hint(y, ("batch", None, "mlp"), (B, S, cfg.d_ff))
         y = y @ lp["w_down"]
         aux = torch.zeros((), dtype=F32, device=x.device)
-    return x + y, aux
+    return x + shard_hint(y, ("batch", None, None), (B, S, D),
+                          partial=s.mlp), aux
 
 
 def _embed_scale(cfg: ModelConfig, x):
@@ -178,9 +334,13 @@ def _unembed(params):
     return w.to(torch.bfloat16).t()
 
 
-def _logits(params, cfg: ModelConfig, x):
+def _logits(params, cfg: ModelConfig, x, *, s: _Split = NO_SPLIT):
+    """The last position's logits [B, V] f32 (vocab-split products
+    gathered over the model axis)."""
     hidden = rms_norm(x, params["final_norm"])
     logits = hidden[:, -1].float() @ _unembed(params).float()
+    if s.vocab:
+        logits = gather_from_group(logits, s.group, 1)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
@@ -194,20 +354,34 @@ def _angles(cfg: ModelConfig, positions):
     return rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
 
 
-def _embed_in(params, cfg: ModelConfig, batch):
+def _embed_in(params, cfg: ModelConfig, batch, *, s: _Split = NO_SPLIT):
     """The input activations [B, S, D] and their positions.  Embeddings
     input (``input_mode="embeds"``): ``batch["embeds"]`` cast to the
     model's dtype, unscaled, and ``batch["positions"]`` as given ([B, S],
     or [B, S, 3] under M-RoPE).  Tokens: their embeddings (scaled) and
     positions [B, S].  The gather is ``index_select``, whose backward on a
     card is deterministic under ``torch.use_deterministic_algorithms``
-    (advanced indexing accumulates repeated tokens' rows with atomics)."""
+    (advanced indexing accumulates repeated tokens' rows with atomics).
+    With the vocab split over the model axis each process looks up the
+    tokens of its rows of the table (zeros for the others) and the hint
+    sums them, which is exact: one process holds each token's row."""
     if cfg.input_mode == "embeds":
         x = batch["embeds"].to(getattr(torch, cfg.dtype))
         return x, batch["positions"]
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = torch.index_select(params["embed"], 0, tokens.reshape(-1).long())
+    ids = tokens.reshape(-1).long()
+    if s.vocab:
+        part = split_of(cfg.vocab)
+        ids = ids - part.start
+        inside = (ids >= 0) & (ids < part.stop - part.start)
+        x = torch.index_select(params["embed"], 0,
+                               ids.clamp(0, part.stop - part.start - 1))
+        x = shard_hint(torch.where(inside[:, None], x, 0).reshape(B, S, -1),
+                       ("batch", None, None), (B, S, cfg.d_model),
+                       partial=True)
+    else:
+        x = torch.index_select(params["embed"], 0, ids)
     x = _embed_scale(cfg, x.reshape(B, S, -1))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
@@ -225,7 +399,8 @@ def _layer_spans(cfg: ModelConfig) -> list[tuple[int, int]]:
     return [(i, i + 1) for i in range(L)]
 
 
-def forward_hidden(params, cfg: ModelConfig, x, sin, cos, *, q_offset=0):
+def forward_hidden(params, cfg: ModelConfig, x, sin, cos, *, q_offset=0,
+                   s: _Split = NO_SPLIT):
     """Run all layers; x [B, S, D] -> (final-normed hidden [B, S, D], aux
     loss).  Under autograd with ``cfg.remat``, each span of
     ``_layer_spans`` is checkpointed: its activations are recomputed in the
@@ -241,8 +416,8 @@ def forward_hidden(params, cfg: ModelConfig, x, sin, cos, *, q_offset=0):
         with use_mesh_context(ctx):
             for i in range(lo, hi):
                 x, _ = _attention(cfg, x, layers[i], sin, cos,
-                                  window=windows[i], q_offset=q_offset)
-                x, a = _ffn(cfg, x, layers[i])
+                                  window=windows[i], q_offset=q_offset, s=s)
+                x, a = _ffn(cfg, x, layers[i], s=s)
                 aux = aux + a
         return x, aux
 
@@ -256,13 +431,16 @@ def forward_hidden(params, cfg: ModelConfig, x, sin, cos, *, q_offset=0):
 
 # -------------------------------------------------------------------- loss
 def loss_fn(params, cfg: ModelConfig, batch):
-    x, positions = _embed_in(params, cfg, batch)
+    s = _split(cfg)
+    x, positions = _embed_in(params, cfg, batch, s=s)
     sin, cos = _angles(cfg, positions)
-    hidden, aux = forward_hidden(params, cfg, x, sin, cos)
+    hidden, aux = forward_hidden(params, cfg, x, sin, cos, s=s)
     total, count = chunked_softmax_xent(
-        hidden, _unembed(params), batch["targets"], batch["mask"],
+        copy_to_group(hidden, s.group) if s.vocab else hidden,
+        _unembed(params), batch["targets"], batch["mask"],
         chunk=cfg.vocab_chunk or min(512, hidden.shape[1]),
-        softcap=cfg.logit_softcap)
+        softcap=cfg.logit_softcap,
+        vocab=split_of(cfg.vocab) if s.vocab else None)
     xent = total / torch.clamp(count, min=1.0)
     return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
@@ -289,7 +467,8 @@ def prefill(params, cfg: ModelConfig, batch, Smax: int | None = None):
     """Full-sequence forward; returns (last-token logits [B, V] f32, filled
     cache).  ``batch`` holds ``tokens`` [B, S], or ``embeds`` [B, S, D] and
     ``positions`` under embeddings input, on the parameters' device."""
-    x, positions = _embed_in(params, cfg, batch)
+    s = _split(cfg)
+    x, positions = _embed_in(params, cfg, batch, s=s)
     B, S, _ = x.shape
     Smax = Smax or S
     dev = params["embed"].device
@@ -301,13 +480,15 @@ def prefill(params, cfg: ModelConfig, batch, Smax: int | None = None):
     layers = _layer_params(params, cfg)
     for i, window in enumerate(_layer_windows(cfg)):
         lp = layers[i]
-        x, (k, v) = _attention(cfg, x, lp, sin, cos, window=window)
-        x, _ = _ffn(cfg, x, lp)
-        ks[i, :, :S] = k
-        vs[i, :, :S] = v
+        x, (k, v) = _attention(cfg, x, lp, sin, cos, window=window, s=s)
+        x, _ = _ffn(cfg, x, lp, s=s)
+        # every kv head of the step's cache box (this process's heads
+        # gathered where they are split)
+        ks[i, :, :S] = _whole(k, s.group, 2, cfg.num_kv_heads)
+        vs[i, :, :S] = _whole(v, s.group, 2, cfg.num_kv_heads)
     cache = {"k": ks, "v": vs,
              "length": torch.tensor(S, dtype=torch.int32, device=dev)}
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x, s=s), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, batch):
@@ -364,4 +545,5 @@ def build(cfg: ModelConfig) -> TorchModelApi:
         cache_axes=functools.partial(cache_axes, cfg),
         loss=lambda params, batch: loss_fn(params, cfg, batch),
         input_specs=functools.partial(token_batch_specs, cfg),
+        split_params=functools.partial(split_params, cfg),
     )

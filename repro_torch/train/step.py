@@ -15,27 +15,37 @@ that of a (1, 1) mesh), which the MoE layer reads.
 
 With a mesh, the state is a dict of DTensors on the placements of the
 per-arch rule table (``state_shardings``), and the step computes the
-one-device step's values: every process gathers the parameters, runs the
-forward and backward on its data rank's rows of the global batch (the
-kernels take the plain local tensors), averages the gradients over the
-batch axes, and applies AdamW (elementwise) to its own shard of every
-parameter and slot (Adafactor, which is not elementwise, is refused on a
-mesh that shards the state).  Processes on the model axis repeat the same compute,
-except in an expert-parallel MoE layer (``models/moe.py::moe_ffn_ep``):
-its expert arrays are gathered over the other axes only, each process
-runs its own experts, and their gradients (this process's experts,
-averaged over the batch axes) are sliced to its shard; ``grad_norm`` sums
-their squares over the model axis.  The reference leaves the rest of the
-compute's partitioning to GSPMD, and only the state's layout is part of its
+one-device step's values: every process gathers the parameters over the
+axes other than ``model``, runs the forward and backward on its data
+rank's rows of the global batch (the kernels take the plain local
+tensors), averages the gradients over the batch axes, and applies AdamW
+(elementwise) to its own shard of every parameter and slot (Adafactor,
+which is not elementwise, is refused on a mesh that shards the state).
+
+Over the model axis, a family with tensor-parallel compute (the
+transformer's ``api.split_params``) splits its compute as the
+reference's activation hints place it (``distrib/context.py``): the
+parameters it names stay split over ``model`` (this process's heads, MLP
+columns or rows, vocab rows), and each process computes on them; a
+parameter stored split over ``model`` that its op uses whole is gathered
+over ``model`` for the step (counted as ``"parameter"`` bytes by
+``distrib/collectives.traffic``).  The expert-parallel MoE layer
+(``models/moe.py::moe_ffn_ep``) takes its expert arrays so too.  A
+gradient of such a parameter is this process's part on ``model`` already,
+so it is sliced on the other axes only, and ``grad_norm`` sums its squares
+over the model axis.  Every other family gathers every parameter whole and
+repeats the compute over the model axis.  The reference leaves the
+compute's partitioning to GSPMD; only the state's layout is part of its
 contract (and of the checkpoint).
 
 ``make_prefill_step`` and ``make_decode_step`` wrap ``api.prefill`` and
 ``api.decode_step`` in the same context: on one process, or on a mesh with
 the serving cache sharded by the rule table (``cache_shardings``: its
-sequence dim on ``kv_seq``, the model axis).  The sharded prefill repeats
-its compute over the model axis and keeps each process's box of the
-cache; the sharded decode computes on each process's cache shard and
-exchanges only per-token results (the sequence-parallel
+sequence dim on ``kv_seq``, the model axis).  The sharded prefill splits
+its compute over the model axis as the train step does (or repeats it, for
+the other families) and keeps each process's box of the cache; the
+sharded decode takes every parameter whole, computes on each process's
+cache shard and exchanges only per-token results (the sequence-parallel
 ``decode_attention``'s log-sum-exp combine, the width-split RG-LRU
 step's and the cross-attention heads' gathers).
 """
@@ -51,7 +61,8 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.distrib.context import (DimSplit, MeshContext,
+from repro_torch.distrib.collectives import all_sum, gather_along
+from repro_torch.distrib.context import (DimSplit, MeshContext, ModelAxis,
                                          use_mesh_context)
 from repro_torch.distrib.rules import (
     RuleTable,
@@ -109,40 +120,64 @@ def shard_state(state: dict[str, torch.Tensor], mesh, shardings
             for name, t in state.items()}
 
 
-def mesh_context_for(mesh, rules: RuleTable) -> MeshContext:
+def mesh_context_for(mesh, rules: RuleTable,
+                     api: TorchModelApi | None = None) -> MeshContext:
     """The context a step installs (the reference's builders' own): batch
-    axes from ``rules``, experts over the model axis.  The reference's
-    context also names the ZeRO-3 axes, over which its ``moe_ffn_ep``
-    gathers the experts' embed dim; here the sharded step gathers them
-    itself, so the layer needs none."""
+    axes from ``rules``, experts over the model axis, and, for the step of
+    a family with tensor-parallel compute (``api.split_params``) on a
+    ``DeviceMesh`` whose model axis has several processes and carries no
+    batch, that axis.  The reference's context also names the ZeRO-3 axes,
+    over which its ``moe_ffn_ep`` gathers the experts' embed dim; here the
+    sharded step gathers them itself, so the layer needs none."""
+    sizes, model = mesh_shape(mesh), None
+    if (api is not None and api.split_params is not None
+            and getattr(mesh, "mesh_dim_names", None) is not None
+            and sizes.get(EP_AXIS, 1) > 1 and EP_AXIS not in rules.batch_axes):
+        model = ModelAxis(mesh.get_group(EP_AXIS), sizes[EP_AXIS],
+                          mesh.get_local_rank(EP_AXIS))
     return MeshContext(mesh=mesh, dp_axes=rules.batch_axes, ep_axis=EP_AXIS,
-                       rules=rules)
+                       rules=rules, model=model)
 
 
-def _expert_arrays(api: TorchModelApi) -> set[str]:
-    """The parameters an expert-parallel MoE layer takes as this process's
-    experts (none unless the config runs ``moe_ffn_ep``)."""
-    moe = api.cfg.moe
-    if moe is None or moe.impl != "ep":
-        return set()
-    return {n for n, s in api.param_specs.items() if "experts" in s.axes}
+def local_params(api: TorchModelApi, ctx: MeshContext) -> frozenset[str]:
+    """The parameters a step under ``ctx`` hands over as this process's
+    part on the model axis (gathered over the other axes only): an
+    expert-parallel layer's experts, and what a tensor-parallel family
+    splits (``api.split_params``) where ``ctx`` has a model axis."""
+    moe, names = api.cfg.moe, set()
+    if moe is not None and moe.impl == "ep":
+        names = {n for n, s in api.param_specs.items() if "experts" in s.axes}
+    if ctx.model is not None:
+        with use_mesh_context(ctx):
+            names |= api.split_params()
+    return frozenset(names)
 
 
-def _expert_placements(mesh, placements) -> list:
-    """``placements`` gathered over every mesh axis but the expert axis."""
+def _model_only(mesh, placements) -> list:
+    """``placements`` gathered over every mesh axis but the model axis."""
     names = list(mesh_shape(mesh))
     return [p if names[i] == EP_AXIS else Replicate()
             for i, p in enumerate(placements)]
 
 
-def _gather(name: str, p, mesh, experts: set[str]) -> torch.Tensor:
+def _gather(name: str, p, mesh, local: frozenset[str]) -> torch.Tensor:
     """What the forward on this process takes of DTensor parameter ``p``:
-    the whole array, or for an expert array (``experts``) this process's
-    experts, gathered over the other axes."""
-    if name not in experts:
-        return p.full_tensor()
-    return p.redistribute(placements=_expert_placements(mesh, p.placements)
-                          ).to_local()
+    its part on the model axis, gathered over the other axes, for a
+    parameter in ``local``; else the whole array (a split over ``model``
+    gathered as ``"parameter"`` bytes of the model group)."""
+    sizes = list(mesh_shape(mesh).values())
+    keep = _model_only(mesh, p.placements)
+    if all(a == b or n == 1 for a, b, n in zip(p.placements, keep, sizes)):
+        t = p.to_local()
+    else:
+        t = p.redistribute(placements=keep).to_local()
+    if name in local:
+        return t
+    for i, pl in enumerate(keep):
+        if pl.is_shard() and sizes[i] > 1:
+            t = gather_along(t, mesh.get_group(EP_AXIS), pl.dim,
+                             kind="parameter")
+    return t
 
 
 def _split_state(state):
@@ -173,6 +208,9 @@ class TrainStep:
     mesh: object = None                # DeviceMesh, or None for one device
     state_shardings: dict | None = None         # name -> placements
     batch_shardings: dict | None = None         # input name -> placements
+    # the parameters the forward takes as this process's part on the model
+    # axis (``local_params``)
+    local_params: frozenset = frozenset()
 
     def __call__(self, state, batch):
         return self.fn(state, batch)
@@ -230,8 +268,8 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
         terms = [torch.sum(grads[n].to(F32) ** 2) for n in names]
         parts = [i for i, n in enumerate(names) if n in split]
         if model_group is not None and parts:
-            summed = torch.stack([terms[i] for i in parts])
-            dist.all_reduce(summed, group=model_group)
+            summed = all_sum(torch.stack([terms[i] for i in parts]),
+                             model_group)
             for j, i in enumerate(parts):
                 terms[i] = summed[j]
         return torch.sqrt(sum(terms))
@@ -241,7 +279,7 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
                       for n, s in specs.items()}
     b_specs = api.input_specs(shape)
     rules = rules or rules_for(api.cfg.arch)
-    ctx = mesh_context_for(ONE_DEVICE if mesh is None else mesh, rules)
+    ctx = mesh_context_for(ONE_DEVICE if mesh is None else mesh, rules, api)
 
     def in_context(fn):
         def run(state, batch):
@@ -299,22 +337,21 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
             at += v.numel()
         return out
 
-    split = _expert_arrays(api)
+    local = local_params(api, ctx)
     model_group = mesh.get_group(EP_AXIS) if sizes[EP_AXIS] > 1 else None
 
     def own(name, g, p):
         """This process's shard of gradient ``g`` of parameter ``p``."""
         box = local_box(p.shape, mesh, p.placements)
-        if name not in split:
+        if name not in local:
             return g[box.slices()]
-        held = local_box(p.shape, mesh, _expert_placements(mesh,
-                                                           p.placements))
+        held = local_box(p.shape, mesh, _model_only(mesh, p.placements))
         return g[tuple(slice(a - h, b - h) for a, b, h in
                        zip(box.start, box.stop, held.start))]
 
     def sharded_step_fn(state, batch):
         params, opt, step = _split_state(state)
-        full = {n: _gather(n, p, mesh, split) for n, p in params.items()}
+        full = {n: _gather(n, p, mesh, local) for n, p in params.items()}
         local_step = step.to_local()
         loss, metrics, grads = loss_and_grads(full, batch,
                                               local_step.device)
@@ -337,14 +374,14 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
                 {k: from_local(t, mesh, opt[k].placements, opt[k].shape)
                  for k, t in new_opt.items()},
                 from_local(local_step + 1, mesh, step.placements, ()))
-            gnorm = grad_norm(grads, model_group, split)
+            gnorm = grad_norm(grads, model_group, local)
         out_metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm}
         out_metrics.update(metrics)
         return new_state, out_metrics
 
     return TrainStep(fn=in_context(sharded_step_fn), abstract_state=abstract_state,
                      abstract_batch=b_specs, mesh=mesh, state_shardings=st_sh,
-                     batch_shardings=b_sh)
+                     batch_shardings=b_sh, local_params=local)
 
 
 # ------------------------------------------------------------------ serving
@@ -403,16 +440,16 @@ def _row_placements(placements, batch_dim: int | None) -> list:
             for p in placements]
 
 
-def _params_once(api: TorchModelApi, mesh):
+def _params_once(mesh, local: frozenset[str]):
     """``full(params)``: every parameter as ``_gather`` gives it, gathered
     once for the params dict the step last saw (serving does not change
     its parameters)."""
-    experts, last = _expert_arrays(api), {}
+    last = {}
 
     def full(params):
         if last.get("of") is not params:
             last.clear()
-            last.update(of=params, full={n: _gather(n, p, mesh, experts)
+            last.update(of=params, full={n: _gather(n, p, mesh, local)
                                          for n, p in params.items()})
         return last["full"]
     return full
@@ -430,18 +467,19 @@ def make_prefill_step(api: TorchModelApi, shape: ShapeConfig,
     this process's rows; each process gathers the parameters, prefills
     its rows (the flash kernel on the card) and keeps the box of the cache
     that ``cache_shardings`` gives it.  The logits come out as a DTensor
-    of rows, the cache as DTensors.  The compute repeats over the model
-    axis (but an expert-parallel MoE layer's)."""
+    of rows, the cache as DTensors.  A tensor-parallel family splits the
+    compute over the model axis as the train step does (``local_params``);
+    the others repeat it (but an expert-parallel MoE layer's)."""
     Smax = cache_len or shape.seq_len
     rules = rules or rules_for(api.cfg.arch)
-    ctx = mesh_context_for(ONE_DEVICE if mesh is None else mesh, rules)
+    ctx = mesh_context_for(ONE_DEVICE if mesh is None else mesh, rules, api)
     if _one_process(mesh):
         return ServeStep(fn=lambda params, batch: api.prefill(params, batch,
                                                               Smax), ctx=ctx)
     c_specs = api.cache_specs(shape.global_batch, Smax)
     axes = api.cache_axes()
     c_sh = cache_shardings(mesh, rules, c_specs, axes)
-    full = _params_once(api, mesh)
+    full = _params_once(mesh, local_params(api, ctx))
     rows_of = _rows_entry(axes)
     rows = _row_placements(c_sh[rows_of], _batch_dim(axes[rows_of]))
 
@@ -515,7 +553,7 @@ def make_decode_step(api: TorchModelApi, *, mesh=None,
     ctx = mesh_context_for(ONE_DEVICE if mesh is None else mesh, rules)
     if _one_process(mesh):
         return ServeStep(fn=api.decode_step, ctx=ctx)
-    full = _params_once(api, mesh)
+    full = _params_once(mesh, local_params(api, ctx))
     axes = api.cache_axes()
     rows_of = _rows_entry(axes)
     bdim = _batch_dim(axes[rows_of])

@@ -832,3 +832,68 @@ def test_serve_launcher_mesh_path_on_one_card(cuda):
             "sample_tokens"} <= set(line)
     assert line["device"] == torch.cuda.get_device_name(0)
     assert len(line["sample_tokens"]) == 5
+
+
+@pytest.mark.parametrize("m", [2, 3])
+def test_tp_step_on_processes_that_share_the_card(cuda, tmp_path,
+                                                  monkeypatch, m):
+    """smollm-135m at full width, 1 layer, B 2, S 256, on a (1, m) mesh of
+    m processes that share the card (gloo, which takes the card's
+    tensors), its compute split over the model axis: 2 steps against the
+    one-process card steps within tests/test_torch_mesh_train.py's bf16
+    tolerances; a second TP run bit-equal; each process launches the flash
+    kernels; over the model axis, parameter bytes only where a weight's
+    split does not line up with its activation's (m = 2: wq, wk and wv,
+    whose 9 and 3 heads do not split 2 ways) and none at m = 3; the saved
+    state restored on one process bit-equal to every process's shards."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from helpers.torch_tp_workers import (card_config, card_errors,
+                                          card_one_process, card_tp_train,
+                                          load_kept)
+
+    from repro_torch.core.store import DatasetStore
+    from repro_torch.core.tensor_ckpt import TensorCheckpoint
+    from repro_torch.core.torch_io import load_torch
+    from repro_torch.launch.spawn import run_processes
+    from repro_torch.models.api import build_model
+
+    layers, B, S, steps = 1, 2, 256, 2
+    store, kept_dir = tmp_path / "store", tmp_path / "kept"
+    kept_dir.mkdir()
+    ranks = run_processes(card_tp_train, m, (
+        (1, m), layers, B, S, steps, 0, str(store), str(kept_dir)),
+        timeout=300, pg_timeout=120)
+    api = build_model(card_config(layers))
+    D, hd, L = api.cfg.d_model, api.cfg.head_dim_, layers
+    # wq [L, D, 9 * hd], wk and wv [L, D, 3 * hd], each process's part
+    gathered = 0 if m == 3 else L * D * (9 + 3 + 3) * hd * 2 // m
+    for r in ranks:
+        assert r["launches"]["flash_attention"] > 0
+        assert r["launches"]["flash_attention_bwd"] > 0
+        assert r["model_bytes"]["parameter"] == steps * gathered
+        assert r["model_bytes"]["activation"] > 0
+        assert r["repeat_differs"] == [] and r["repeat_metrics_equal"]
+        assert r["metrics"] == ranks[0]["metrics"]
+    kept = load_kept(str(kept_dir), m)
+    ck = TensorCheckpoint(DatasetStore(str(store), "r"))
+    target = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in api.abstract_params().items()}
+    target = {f"params/{k}": v for k, v in target.items()}
+    restored = load_torch(ck, target, steps, device="cuda")
+    for r in kept:
+        for k, v in restored.items():
+            got = v[r["boxes"][k]].cpu().reshape(-1).view(torch.uint8)
+            assert torch.equal(got, r["local"][k].reshape(-1)
+                               .view(torch.uint8)), k
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    try:
+        one = card_one_process(layers, B, S, steps, 0)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    errors = card_errors(ranks[0]["metrics"], kept, one)
+    worst = max(errors.items(), key=lambda kv: kv[1])
+    assert worst[1] <= 1.0, worst
