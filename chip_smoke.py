@@ -48,7 +48,8 @@ split over 3 processes that share the card.
            gives the same tokens;
   hybrid_consistency  decode-step logits against one prefill of the prompt
            plus the tokens generated so far;
-  train    full smollm-135m (B 4, S 2048) trained through the TorchTrainer in
+  train    smollm-135m at full width, TRAIN_LAYERS of its 30 layers (B 4,
+           S 2048), trained through the TorchTrainer in
            deterministic mode, its attention on the flash kernels under
            autograd, forward and backward (dq, dk, dv first checked against
            autograd through the plain blocked path): run A takes 6 steps
@@ -304,8 +305,12 @@ HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_B, HYBRID_TRAIN_S = 3, 4, 2048
 HYBRID_TRAIN_STEPS, HYBRID_REPEAT_STEPS = 4, 2
 
 # the train phase: SmolLM's published context of 2,048 tokens at batch 4
-# (8,192 tokens a step), AdamW under warmup_cosine(3e-3, warmup 2, total 6)
+# (8,192 tokens a step), AdamW under warmup_cosine(3e-3, warmup 2, total 6),
+# at TRAIN_LAYERS of the 30 layers (a 0.42 GB state; at 30, 1.35 GB, whose
+# restore through the general load path took 111-131 s of the script's
+# 1,000 s aim, which adafactor_mesh needed)
 TRAIN_B, TRAIN_S = 4, 2048
+TRAIN_LAYERS = 4
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 2, 5
 TRAIN_LR, TRAIN_WARMUP = 3e-3, 2
 # |vjp grad - plain grad| <= VJP_ATOL + VJP_RTOL * |plain grad|: the
@@ -390,7 +395,8 @@ XLSTM_F32_RTOL = 1e-4
 # matrix memories of [2, 4, 512, 512] f32) saved as 4 ranks, restored on
 # this card; XLSTM_STATE_DECODE decode steps from each, logits bit-equal
 XLSTM_STATE_B, XLSTM_STATE_DECODE = 2, 8
-# trained at full size (353.8 M parameters, a 3.54 GB AdamW state), B 4,
+# trained at full width (353.8 M parameters at 24 layers, a 3.54 GB AdamW
+# state; XLSTM_TRAIN_LAYERS of them here), B 4,
 # S 512, deterministic mode: XLSTM_TRAIN_STEPS steps and steps 1-2 again
 # bit-equal; then the kill and resume at XLSTM_RESUME_LAYERS (one
 # mLSTM/sLSTM pair at full width, a 0.767 GB state: the general restore
@@ -398,6 +404,10 @@ XLSTM_STATE_B, XLSTM_STATE_DECODE = 2, 8
 XLSTM_TRAIN_B, XLSTM_TRAIN_S = 4, 512
 XLSTM_TRAIN_STEPS, XLSTM_REPEAT_STEPS = 4, 2
 XLSTM_RESUME_LAYERS = 2
+# the repeated steps at full width run XLSTM_TRAIN_LAYERS of the 24 layers
+# (one mLSTM/sLSTM pair; at 24 they took some 100 s of the script's
+# 1,000 s aim, which adafactor_mesh needed)
+XLSTM_TRAIN_LAYERS = 2
 # whisper-base at full size (83.2 M parameters, seeded bf16): B 4, a
 # decoder prompt of 32 tokens over 1,500 encoder frames (the config's
 # encoder_seq, 30 s of audio), 32 decode steps through the launcher's
@@ -418,7 +428,7 @@ WHISPER_STATE_DECODE = 8
 # (encoder and decoder layers; None: the full 6 + 6)
 WHISPER_TRAIN_B, WHISPER_TRAIN_S = 4, 448
 WHISPER_TRAIN_STEPS, WHISPER_REPEAT_STEPS = 4, 2
-WHISPER_RESUME_LAYERS = 2
+WHISPER_RESUME_LAYERS = 1
 # kimi-k2 at full width with its depth cut from 61 layers to 1 (384
 # experts top-8, d_ff_expert 2,048, 64 heads over 8 kv heads at hd 128,
 # untied vocabulary 163,840: 19.4 G parameters, 38.8 GB of seeded bf16),
@@ -467,6 +477,26 @@ SERVE_MESH_TIMEOUT = 600
 # (tests/helpers/torch_tp_workers.py's CARD_RTOL)
 TP_MESH, TP_LAYERS, TP_B, TP_S, TP_STEPS = (1, 3), 2, 4, 2048, 3
 TP_TIMEOUT = 600
+# Adafactor on a sharded mesh: kimi_train's model (kimi-k2 at full width,
+# 1 layer, KIMI_TRAIN_EXPERTS experts top-8, EP, bf16, remat) on a (1, 4)
+# mesh of processes that share the card over gloo (each with 16 query and
+# 2 kv heads, 16 experts and 40,960 vocab rows); each process builds its
+# box of the seeded state, serves B 4 prompts of ADA_P tokens and ADA_G
+# decode steps on its local heads (fed the one-process run's tokens), and
+# trains ADA_STEPS steps under kimi_train's schedule, held to kimi_train's
+# own first ADA_STEPS steps within CARD_RTOL; steps 1..ADA_REPEAT again
+# bit-equal; the smoke config's sharded Adafactor state saved by the 4
+# processes restores 4 -> 1 on the card bit-equal
+ADA_MESH, ADA_STEPS, ADA_REPEAT = (1, 4), 3, 2
+ADA_P, ADA_G = 512, 8
+ADA_TIMEOUT = 600
+# Adafactor's steps at kimi_train's rate move most bf16 weights by about
+# one spacing of their value over 3 steps (the median element of every
+# matrix moves 1), so the two runs' last-bit differences decide which way
+# each rounds: a parameter's update is held over the elements that move at
+# least ADA_MIN_CHANGE_ULPS spacings, where a flipped rounding is at most
+# an eighth of the change (the whole update's 2-norm is reported beside)
+ADA_MIN_CHANGE_ULPS = 8
 
 
 def tp_heads(cfg) -> tuple[int, int, int]:
@@ -476,7 +506,23 @@ def tp_heads(cfg) -> tuple[int, int, int]:
     return cfg.num_heads // m, cfg.num_kv_heads // m, cfg.head_dim_
 
 
+def ada_heads() -> tuple[int, int, int]:
+    """(Hq, Hkv, hd) of one ``adafactor_mesh`` process's attention:
+    kimi-k2's 64 query and 8 kv heads over the model axis of ADA_MESH."""
+    from repro_torch.configs import get_config
+
+    kimi, m = get_config("kimi_k2_1t_a32b"), ADA_MESH[1]
+    return kimi.num_heads // m, kimi.num_kv_heads // m, kimi.head_dim_
+
+
+#: the script's start on the host clock: each phase's line carries its
+#: ``at_seconds`` since then
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_seconds": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -733,6 +779,9 @@ def check_flash_attention(cfg) -> dict:
         (1, 333, 333, 0, 0, 50.0, ()),     # logit softcap
         (ELASTIC_B, ELASTIC_S, ELASTIC_S, 0, 0, 0.0, ()),  # the elastic step
         (TP_B, TP_S, TP_S, 0, 0, 0.0, tp_heads(cfg)),  # a tp_train process
+        # an adafactor_mesh process: its train step and its prefill
+        (KIMI_TRAIN_B, KIMI_TRAIN_S, KIMI_TRAIN_S, 0, 0, 0.0, ada_heads()),
+        (KIMI_TRAIN_B, ADA_P, ADA_P, 0, 0, 0.0, ada_heads()),
         (HD128[0], HD128[1], HD128[1], 0, 0, 0.0, HD128[2:]),
     ] + [(B, S, S, 0, 0, 0.0, h) for B, S, *h in GRANITE + DENSE + VLM] + [
         (1, P, P, 0, 0, 0.0, ()) for P in sorted({p for p, _ in REQUESTS})]
@@ -875,6 +924,8 @@ def check_flash_attention_bwd(cfg) -> dict:
         (2, 333, 433, 9, 3, 64, 100, 256, 50.0),         # ragged, all three
         (KIMI_TRAIN_B, KIMI_TRAIN_S, KIMI_TRAIN_S, kimi.num_heads,
          kimi.num_kv_heads, kimi.head_dim_, 0, 0, 0.0),  # kimi_train, G 8
+        (KIMI_TRAIN_B, KIMI_TRAIN_S, KIMI_TRAIN_S, *ada_heads(), 0, 0,
+         0.0),                                 # an adafactor_mesh process
     ]
     results, worst = [], 0.0
     for B, Sq, Sk, Hq, Hkv, hd, qoff, win, cap in cases:
@@ -1572,9 +1623,10 @@ def check_flash_vjp(cfg, device) -> list[dict]:
     """dq, dk, dv of the kernel's autograd Function (the forward and
     backward kernels) against autograd through the plain blocked
     ``flash_attention_xla`` on the same upstream gradient, at the train
-    path's shape and at one ``tp_train`` process's heads (3 query over 1
-    kv); and against autograd through the plain f32 attention (reported,
-    not held: bf16 against f32)."""
+    path's shape, at one ``tp_train`` process's heads (3 query over 1 kv)
+    and at one ``adafactor_mesh`` process's (16 query over 2 kv, hd 128);
+    and against autograd through the plain f32 attention (reported, not
+    held: bf16 against f32)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.layers import flash_attention_xla
@@ -1584,7 +1636,8 @@ def check_flash_vjp(cfg, device) -> list[dict]:
     lines = []
     for B, S, Hq, Hkv, hd in [
             (TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_),
-            (TP_B, TP_S, *tp_heads(cfg))]:
+            (TP_B, TP_S, *tp_heads(cfg)),
+            (KIMI_TRAIN_B, KIMI_TRAIN_S, *ada_heads())]:
         shapes = [(B, S, Hq, hd)] + [(B, S, Hkv, hd)] * 2
         q, k, v, g = (torch.randn(s, generator=gen, device=device)
                       .to(torch.bfloat16) for s in shapes + shapes[:1])
@@ -1928,8 +1981,8 @@ def phase_fem(device, store_dir: str) -> dict:
 
 def phase_postprocess(store_dir: str, kept: dict, device) -> dict:
     """Save big, post-process small: sweep every committed step of the
-    train phase's store (runs B and C: the full smollm-135m train state at
-    steps 2, 4 and 6) on one rank, loading only ``SWEEP_ARRAYS`` onto the
+    train phase's store (runs B and C: smollm-135m's train state at steps
+    2, 4 and 6) on one rank, loading only ``SWEEP_ARRAYS`` onto the
     card; each swept array must equal the train phase's own, bit for bit,
     and the store must read no more than those arrays' datasets."""
     from repro_torch.core.store import DatasetStore, np_dtype
@@ -2626,7 +2679,8 @@ def dense_paths(device, store_dir: str) -> dict:
 # ------------------------------------------------------ recurrent training
 def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
                  mesh=None, opt=None, data=None,
-                 report_state: bool = False, lr: float = TRAIN_LR) -> dict:
+                 report_state: bool = False, lr: float = TRAIN_LR,
+                 hold: int = 0) -> dict:
     """``steps`` steps of ``make_train_step`` (sharded over ``mesh`` when one
     is given) under ``opt`` (AdamW by default) in deterministic mode from
     the seeded state (finite, falling loss) on the batches of ``data``
@@ -2634,8 +2688,9 @@ def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
     the host, under warmup_cosine(``lr``, warmup TRAIN_WARMUP); then steps
     1..``repeat`` again from the same seed, bit-equal
     to it in every array and every loss.  ``report_state`` adds each
-    array's shape and dtype.  The launch counts are set to 0 by the caller
-    just before and read just after."""
+    array's shape and dtype.  ``hold`` > 0 adds ``"held"``: the state
+    after step ``hold``, on the host.  The launch counts are set to 0 by
+    the caller just before and read just after."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.device import use_deterministic_algorithms
     from repro_torch.distrib.rules import local_box
@@ -2661,6 +2716,8 @@ def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
         return {k: torch.from_numpy(mine(k, v)).to(device)
                 for k, v in data.batch(i).items()}
 
+    held = []
+
     def run(n):
         state = init_train_state(
             api, opt, torch.Generator(device=device).manual_seed(SEED))
@@ -2677,6 +2734,8 @@ def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
             history.append({k: float(v) for k, v in m.items()})
             if i + 1 == repeat:
                 kept = {k: t.cpu() for k, t in local(state).items()}
+            if i + 1 == hold and not held:
+                held.append({k: t.cpu() for k, t in local(state).items()})
         return local(state), history, seconds, kept
 
     torch.cuda.reset_peak_memory_stats()
@@ -2711,7 +2770,8 @@ def repeat_train(api, B: int, S: int, steps: int, repeat: int, device,
             "tokens_per_s": B * S / median, "peak_memory_allocated": peak,
             "repeat_steps": repeat, "repeat_bit_equal_arrays": n_arrays,
             "steps_run": steps + repeat,
-            **({"state_arrays": shapes} if report_state else {})}
+            **({"state_arrays": shapes} if report_state else {}),
+            **({"held": held[0]} if hold else {})}
 
 
 def slstm_share(api, params, batch) -> dict:
@@ -2891,9 +2951,11 @@ def recurrent_paths(device, store_dirs) -> dict:
     t0 = time.perf_counter()
     zero()
     train = {"phase": "xlstm_train", **repeat_train(
-        api, XLSTM_TRAIN_B, XLSTM_TRAIN_S, XLSTM_TRAIN_STEPS,
+        build_model(dataclasses.replace(cfg, num_layers=XLSTM_TRAIN_LAYERS)),
+        XLSTM_TRAIN_B, XLSTM_TRAIN_S, XLSTM_TRAIN_STEPS,
         XLSTM_REPEAT_STEPS, device)}
     train["kernel_launches"] = read()
+    train["layers_cut_from"] = cfg.num_layers
     torch.cuda.empty_cache()
     # A, B and C count each run's launches themselves (ckpt_pack on every
     # save)
@@ -3115,7 +3177,9 @@ def kimi_paths(device, store_dirs) -> dict:
     it and read just after: ``kimi_serve`` (one layer at full width, its KV
     cache 4 -> 1) and ``kimi_train`` (Adafactor: the experts cut to
     KIMI_TRAIN_EXPERTS, steps repeated; then the kill and resume at the
-    smoke config).  Returns the launches per kernel."""
+    smoke config).  Returns the launches per kernel, and what
+    ``adafactor_mesh`` holds its steps to: the state after ADA_STEPS steps
+    (on the host), those steps' metrics and ms."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import moe
@@ -3189,7 +3253,11 @@ def kimi_paths(device, store_dirs) -> dict:
     train = {"phase": "kimi_train", **repeat_train(
         tapi, KIMI_TRAIN_B, KIMI_TRAIN_S, KIMI_TRAIN_STEPS,
         KIMI_REPEAT_STEPS, device, opt=Adafactor(), report_state=True,
-        lr=KIMI_TRAIN_LR)}
+        lr=KIMI_TRAIN_LR, hold=ADA_STEPS)}
+    history = [{"loss": train["losses"][i],
+                **{k: v[i] for k, v in train["metrics"].items()}}
+               for i in range(ADA_STEPS)]
+    one = (train.pop("held"), history, train["step_ms"][:ADA_STEPS])
     train["kernel_launches"] = read()
     train["moe_ffn_ep_calls"] = moe.calls
     train.update({"layers_cut_from": full.num_layers,
@@ -3232,7 +3300,7 @@ def kimi_paths(device, store_dirs) -> dict:
     train["phase_seconds"] = time.perf_counter() - t0
     emit(train)
     torch.cuda.empty_cache()
-    return launches
+    return launches, one
 
 
 def quickstart_path(device) -> dict:
@@ -3549,6 +3617,154 @@ def tp_train_path(device, scratch: Path) -> dict:
     return launches
 
 
+def adafactor_mesh_path(device, scratch: Path, one) -> dict:
+    """The ``adafactor_mesh`` phase.  First the one-process serving from
+    the seeded parameters of kimi_train's model (``card_one_process``).
+    Then ADA_MESH's processes share the card (``card_adafactor_mesh``):
+    each process's launch counts at 0 just before its serving and its
+    training and read just after; its decode fed the one-process run's
+    tokens, whose greedy choices and logits it must give; its steps held
+    to kimi_train's (``one``) within CARD_RTOL; steps 1..ADA_REPEAT again
+    bit-equal; the smoke config's sharded Adafactor state saved through
+    ckpt_pack.  Then this process restores that state 4 -> 1 on the card,
+    every process's shards bit-equal.  ``one``: ``kimi_paths``'s state
+    after ADA_STEPS steps, metrics and ms (its initial parameters are drawn
+    again here from the seed).  Returns the launches of the processes
+    (summed) and of the restore."""
+    from repro_torch.core.store import DatasetStore
+    from repro_torch.core.tensor_ckpt import TensorCheckpoint
+    from repro_torch.core.torch_io import load_torch
+    from repro_torch.launch.spawn import run_processes
+    from repro_torch.models.api import build_model
+    from repro_torch.train import Adafactor, init_train_state
+
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from helpers import torch_adafactor_workers as W
+    from helpers.torch_tp_workers import card_errors
+
+    t_phase = time.perf_counter()
+    cfg = W.card_config(1, KIMI_TRAIN_EXPERTS)
+    # ---- the one-process serving the mesh's must give
+    t0 = time.perf_counter()
+    one_logits, tokens = W.card_one_process(cfg, KIMI_TRAIN_B, ADA_P, ADA_G,
+                                            SEED)
+    one_serve_s = time.perf_counter() - t0
+    store = tempfile.mkdtemp(prefix="ada_store_", dir=scratch)
+    kept_dir = tempfile.mkdtemp(prefix="ada_kept_", dir=scratch)
+    n = ADA_MESH[0] * ADA_MESH[1]
+    try:
+        t0 = time.perf_counter()
+        ranks = run_processes(W.card_adafactor_mesh, n, (
+            ADA_MESH, cfg, KIMI_TRAIN_B, KIMI_TRAIN_S,
+            ADA_STEPS, ADA_REPEAT, SEED, KIMI_TRAIN_LR, TRAIN_WARMUP,
+            KIMI_TRAIN_STEPS, tokens, ADA_P, store, kept_dir),
+            timeout=ADA_TIMEOUT, pg_timeout=ADA_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        layers = cfg.num_layers
+        for r in ranks:
+            got = r["launches"]
+            # a remat span runs its layer again in the backward pass
+            if (r["prefill_flash_launches"] != layers
+                    or got["flash_attention"] != 2 * layers * ADA_STEPS
+                    or got["flash_attention_bwd"] != layers * ADA_STEPS
+                    or got["moe_ffn_ep"] != 2 * layers * ADA_STEPS
+                    or not got["ckpt_pack"]):
+                raise AssertionError(f"rank {r['rank']} of adafactor_mesh "
+                                     f"launched {got}, prefill "
+                                     f"{r['prefill_flash_launches']}")
+            for what in ("model_bytes", "serve_model_bytes"):
+                if r[what]["parameter"] or not r[what]["activation"]:
+                    raise AssertionError(f"rank {r['rank']} sent "
+                                         f"{r[what]} over the model axis")
+            if r["repeat_differs"] or not r["repeat_metrics_equal"]:
+                raise AssertionError(f"rank {r['rank']}: steps 1-"
+                                     f"{ADA_REPEAT} again differ in "
+                                     f"{r['repeat_differs']}")
+            if r["metrics"] != ranks[0]["metrics"]:
+                raise AssertionError("the processes' metrics differ")
+        kept = W.load_kept(kept_dir, n)
+        init = {f"params/{k}": t for k, t in build_model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(SEED)).items()}
+        ratios = card_errors(ranks[0]["metrics"], kept, (init, *one),
+                             device="cuda",
+                             min_change_ulps=ADA_MIN_CHANGE_ULPS)
+        worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:5]
+        del kept, init
+        torch.cuda.empty_cache()
+        if worst[0][1] > 1.0:
+            raise AssertionError(f"the sharded Adafactor steps against "
+                                 f"kimi_train's, error / tolerance: {worst}")
+        agree = W.logit_agreement(ranks[0]["logits"], one_logits, tokens)
+        limit = LOGITS_RTOL["kimi-k2-1t-a32b"]
+        if agree["logits_err_over_scale"] > limit or agree["argmax_flips"]:
+            raise AssertionError(f"the local-head decode against the "
+                                 f"one-process decode: {agree}, limit "
+                                 f"{limit}")
+
+        # ---- the smoke config's sharded Adafactor state 4 -> 1 on the card
+        zero, read, restore_launches = _counter()
+        small = build_model(W.config(*W.SAVED))
+        t0 = time.perf_counter()
+        zero()
+        ck = TensorCheckpoint(DatasetStore(store, "r"))
+        target = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in init_train_state(
+                      small, Adafactor(), torch.Generator().manual_seed(SEED)
+                  ).items()}
+        restored = load_torch(ck, target, 2, device="cuda")
+        ck.store.close()
+        read()
+        restore_s = time.perf_counter() - t0
+        smoke = W.load_kept(kept_dir, n, "smoke")
+        differ = sorted({k for r in smoke for k, t in r["local"].items()
+                         if not _same_bits(
+                             restored[k][r["boxes"][k]].cpu(), t)})
+        if differ:
+            raise AssertionError(f"the 4 -> 1 restore differs in {differ}")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(kept_dir, ignore_errors=True)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("flash_attention", "flash_attention_bwd",
+                          "ckpt_pack")}
+    launches["flash_attention"] += sum(r["prefill_flash_launches"]
+                                       for r in ranks)
+    launches["ckpt_pack"] += restore_launches["ckpt_pack"]
+    emit({"phase": "adafactor_mesh", "arch": "kimi-k2-1t-a32b",
+          "layers": 1, "experts": KIMI_TRAIN_EXPERTS, "batch": KIMI_TRAIN_B,
+          "seq": KIMI_TRAIN_S, "mesh": list(ADA_MESH), "processes": n,
+          "backend": "gloo", "optimizer": "adafactor", "deterministic": True,
+          "local_params": ranks[0]["local_params"],
+          "local_shapes": ranks[0]["local_shapes"],
+          "losses": [m["loss"] for m in ranks[0]["metrics"]],
+          "one_process_losses": [h["loss"] for h in one[1]],
+          "worst_error_over_tolerance": worst,
+          "min_change_ulps": ADA_MIN_CHANGE_ULPS,
+          "step_ms": [[t * 1e3 for t in r["step_seconds"]] for r in ranks],
+          "one_process_step_ms": one[2],
+          "exchange_ms_per_step": [r["exchange_seconds"] * 1e3 / ADA_REPEAT
+                                   for r in ranks],
+          "timed_step_ms": [[t * 1e3 for t in r["timed_step_seconds"]]
+                            for r in ranks],
+          "model_axis_bytes_per_process": [r["model_bytes"] for r in ranks],
+          "serve_model_axis_bytes_per_process": [r["serve_model_bytes"]
+                                                 for r in ranks],
+          "peak_memory_allocated_per_process": [r["peak_memory_allocated"]
+                                                for r in ranks],
+          "decode": {"prompt": ADA_P, "steps": ADA_G,
+                     "decode_ms": ranks[0]["decode_ms"], **agree,
+                     "limit": LOGITS_RTOL["kimi-k2-1t-a32b"]},
+          "launches_per_process": [r["launches"] for r in ranks],
+          "repeat_bit_equal": True, "restore_4_to_1_bit_equal": True,
+          "init_seconds": max(r["init_seconds"] for r in ranks),
+          "smoke_save_seconds": max(r["smoke_save_seconds"] for r in ranks),
+          "restore_seconds": restore_s, "spawn_seconds": spawn_s,
+          "one_process_serve_seconds": one_serve_s,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
@@ -3638,15 +3854,20 @@ def main(argv=None) -> int:
         # ---- the last two families and the quickstart: whisper-base
         # served, its cache restarted 4 -> 1, trained; kimi-k2 served at
         # one full-width layer and trained under Adafactor
-        last_launches = [whisper_paths(device, whisper_stores),
-                         kimi_paths(device, kimi_stores),
+        whisper_launches = whisper_paths(device, whisper_stores)
+        kimi_launches, kimi_one = kimi_paths(device, kimi_stores)
+        last_launches = [whisper_launches, kimi_launches,
                          quickstart_path(device),
                          # ---- serving on a mesh: smollm's sharded cache
                          # 4 CPU processes -> the card, and the launcher
                          serve_mesh_path(device, scratch),
                          # ---- tensor-parallel training: 3 processes
                          # share the card
-                         tp_train_path(device, scratch)]
+                         tp_train_path(device, scratch),
+                         # ---- Adafactor on a sharded mesh and the decode
+                         # on local heads: 4 processes share the card
+                         adafactor_mesh_path(device, scratch, kimi_one)]
+        del kimi_one
     finally:
         for d in ([store_dir, hybrid_store, fem_store, moe_store, vlm_store]
                   + train_stores + recurrent_stores + whisper_stores
@@ -3753,7 +3974,8 @@ def earlier_paths(api, cfg, hapi, hcfg, params, layout, ownership, device,
         torch.cuda.empty_cache()
 
     # ---- the train path, outside inference mode (autograd needs it)
-    train, kept = phase_train(dataclasses.replace(cfg, remat=True),
+    train, kept = phase_train(dataclasses.replace(
+        cfg, remat=True, num_layers=TRAIN_LAYERS),
                               device, train_stores)
     emit(train)
 

@@ -26,11 +26,12 @@ with one summary line on stdout:
   transformer-family train or prefill cell splits its compute over the
   model axis as the sharded steps do (``"compute": "split over model"``):
   the parameters it takes as this process's part (``api.split_params``)
-  are cut to it, and its model-axis collectives run on a counting
+  are cut to it, a decode step holds its box of the ``kv_seq``-split
+  cache, and its model-axis collectives run on a counting
   backend (``collectives.using``) that moves nothing and counts the bytes
   this process would send (``comm_bytes_model``: activations, and the
   parameters the step gathers over the model axis).  Every other cell
-  (the other families, every decode) repeats the compute over the model axis
+  (the other families) repeats the compute over the model axis
   (``"compute": "repeated over model"``), but for an expert-parallel MoE
   layer, which runs this process's experts only (its collectives move no
   bytes of the count: they are communication).  The ``rglru_scan``
@@ -67,7 +68,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import SHAPES, ShapeConfig, cell_is_applicable
 from repro_torch.configs.perf import step_knobs
 from repro_torch.distrib import collectives
-from repro_torch.distrib.context import (MeshContext, ModelAxis,
+from repro_torch.distrib.context import (DimSplit, MeshContext, ModelAxis,
                                          model_split, use_mesh_context)
 from repro_torch.distrib.rules import rules_for
 from repro_torch.models.api import BatchSpec, build_model
@@ -277,6 +278,30 @@ def _per_process(specs: dict, ep: int, local: dict, m: int) -> dict:
     return out
 
 
+def _cache_box(api, rows: int, seq_len: int, ctx: MeshContext,
+               split: bool) -> tuple[dict, dict | None]:
+    """The serving cache's specs as one process of a split decode holds
+    it, and its splits: each entry's dim the rule table splits over the
+    model axis (the sequence dim, ``kv_seq``) cut to this process's part,
+    as the sharded decode step's ``decode_splits`` gives it.  Without a
+    split, the whole cache and no splits."""
+    specs = api.cache_specs(rows, seq_len)
+    if not split:
+        return specs, None
+    axes, splits, out = api.cache_axes(), {}, {}
+    m = ctx.model.size
+    with use_mesh_context(ctx):
+        for k, s in specs.items():
+            d = model_split(axes[k], s.shape)
+            if d is not None:
+                n = s.shape[d]
+                splits[k] = {d: DimSplit(0, n // m, n, ctx.model.group)}
+                s = dataclasses.replace(s, shape=s.shape[:d] + (n // m,)
+                                        + s.shape[d + 1:])
+            out[k] = s
+    return out, splits
+
+
 def count_step(cfg, shape: ShapeConfig, rules, sizes: dict, knobs: dict,
                rows: int) -> dict:
     """FLOPs and bytes of one process's step at ``rows`` rows, on meta; the
@@ -284,8 +309,8 @@ def count_step(cfg, shape: ShapeConfig, rules, sizes: dict, knobs: dict,
     it."""
     api = build_model(cfg)
     m = sizes["model"]
-    split = (shape.kind != "decode" and api.split_params is not None
-             and m > 1 and "model" not in rules.batch_axes)
+    split = (api.split_params is not None and m > 1
+             and "model" not in rules.batch_axes)
     group = "model"             # the counting backend's only group
     ctx = MeshContext(mesh=_CountingMesh(sizes), dp_axes=rules.batch_axes,
                       ep_axis="model", rules=rules,
@@ -299,9 +324,13 @@ def count_step(cfg, shape: ShapeConfig, rules, sizes: dict, knobs: dict,
             dims = {n: model_split(s.axes, s.shape)
                     for n, s in api.param_specs.items()}
 
-    def within(fn):
+    # a decode step holds its box of the cache (``_cache_box``)
+    cache_specs, cache_splits = _cache_box(api, rows, shape.seq_len, ctx,
+                                           split)
+
+    def within(fn, c=ctx):
         def run(*args):
-            with use_mesh_context(ctx):
+            with use_mesh_context(c):
                 return fn(*args)
         return run
     ep = (sizes["model"] if cfg.moe is not None and cfg.moe.impl == "ep"
@@ -311,7 +340,8 @@ def count_step(cfg, shape: ShapeConfig, rules, sizes: dict, knobs: dict,
         api, param_specs=_per_process(api.param_specs, ep,
                                       {n: dims[n] for n in names}, m),
         loss=within(api.loss), prefill=within(api.prefill),
-        decode_step=within(api.decode_step))
+        decode_step=within(api.decode_step, dataclasses.replace(
+            ctx, cache_splits=cache_splits)))
     local = ShapeConfig(shape.name, shape.seq_len, rows, shape.kind)
     params = _meta(api.param_specs)
     traffic = Traffic()
@@ -330,7 +360,7 @@ def count_step(cfg, shape: ShapeConfig, rules, sizes: dict, knobs: dict,
             make_prefill_step(api, local)(params,
                                           _meta(api.input_specs(local)))
         else:
-            cache = _meta(api.cache_specs(rows, shape.seq_len))
+            cache = _meta(cache_specs)
             batch = _meta({"token": BatchSpec((rows, 1), "int32"),
                            "pos": BatchSpec((rows,), "int32")})
             with torch.inference_mode():

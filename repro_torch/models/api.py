@@ -50,19 +50,23 @@ class TorchModelApi:
         recipe (sorted names; normal(0, scale) drawn in f32, then cast), but
         torch's numbers — ``jax.random`` cannot be reproduced, so tests load
         the reference's init through ``convert.params_from_jax`` instead."""
+        return dict(self.init_each(generator))
+
+    def init_each(self, generator: torch.Generator):
+        """``init``'s (name, parameter) pairs one at a time, in its order
+        and with its draws: a caller that keeps a part of each holds one
+        whole parameter at a time."""
         device = generator.device
-        params = {}
         for name, spec in sorted(self.param_specs.items()):
             dtype = getattr(torch, spec.dtype)
             if spec.init == "zeros":
-                params[name] = torch.zeros(spec.shape, dtype=dtype, device=device)
+                yield name, torch.zeros(spec.shape, dtype=dtype, device=device)
             elif spec.init == "ones":
-                params[name] = torch.ones(spec.shape, dtype=dtype, device=device)
+                yield name, torch.ones(spec.shape, dtype=dtype, device=device)
             else:
-                params[name] = (spec.scale * torch.randn(
+                yield name, (spec.scale * torch.randn(
                     spec.shape, generator=generator, dtype=torch.float32,
                     device=device)).to(dtype)
-        return params
 
     def abstract_params(self) -> dict[str, torch.Tensor]:
         """Shape-and-dtype stand-ins on the ``meta`` device (no memory)."""

@@ -66,10 +66,14 @@ def _renorm(gates: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
-            capacity_factor: float = 1.25, num_real: int | None = None):
+            capacity_factor: float = 1.25, num_real: int | None = None,
+            mesh=None, dp_axes: tuple[str, ...] = ("data",)):
     """x [B, S, D]; router_w [D, E]; experts w_gate/w_up [E, D, F],
     w_down [E, F, D].  Returns (y [B, S, D], aux_loss scalar).
-    ``num_real`` masks router-padded phantom experts (< E)."""
+    ``num_real`` masks router-padded phantom experts (< E).  With a
+    ``mesh`` whose ``dp_axes`` split the batch, ``x`` is this process's
+    rows, and the aux loss's fractions are averaged over those axes
+    before their product, as over the reference's global batch."""
     B, S, D = x.shape
     E = router_w.shape[-1]
     C = max(1, int(S * top_k / E * capacity_factor))
@@ -107,6 +111,10 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     # Switch-style load-balance aux loss
     frac_tokens = F.one_hot(ids, E).to(F32).sum(2).mean(dim=(0, 1)) / top_k
     frac_probs = probs.mean(dim=(0, 1))
+    if mesh is not None:
+        groups, dp = _batch_groups(mesh, dp_axes)
+        frac_tokens = mean_over_groups(frac_tokens, groups, dp)
+        frac_probs = mean_over_groups(frac_probs, groups, dp)
     aux = E * torch.sum(frac_tokens * frac_probs)
     return y, aux
 
@@ -123,6 +131,15 @@ def _route(x_flat, router_w, *, top_k: int, num_real: int):
 def _group(mesh, sizes: dict, axis: str):
     """The process group of ``axis``, or None where it has one process."""
     return mesh.get_group(axis) if sizes[axis] > 1 else None
+
+
+def _batch_groups(mesh, dp_axes) -> tuple[list, int]:
+    """The groups of the batch axes with more than one process, and the
+    product of the batch axes' sizes."""
+    sizes = mesh_shape(mesh)
+    groups = [g for g in (_group(mesh, sizes, a) for a in dp_axes)
+              if g is not None]
+    return groups, math.prod(sizes[a] for a in dp_axes)
 
 
 def _coordinate(mesh, sizes: dict, axis: str) -> int:
@@ -236,6 +253,4 @@ def moe_ffn_ep(x, router_w, w_gate, w_up, w_down, *, top_k: int,
         num_real=num_real,
         my_lo=_coordinate(mesh, sizes, ep_axis) * (E // ep),
         model_group=_group(mesh, sizes, ep_axis),
-        dp_groups=[g for g in (_group(mesh, sizes, a) for a in dp_axes)
-                   if g is not None],
-        dp=dp)
+        dp_groups=_batch_groups(mesh, dp_axes)[0], dp=dp)

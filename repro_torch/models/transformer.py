@@ -43,7 +43,8 @@ from repro_torch.distrib.context import (mesh_context, model_axis,
                                          model_split, shard_hint, split_of,
                                          use_mesh_context)
 from repro_torch.distrib.tensor_parallel import (copy_to_group,
-                                                 gather_from_group)
+                                                 gather_from_group,
+                                                 split_to_group)
 from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
 from repro_torch.models.api import (
     BatchSpec,
@@ -146,13 +147,13 @@ class _Split:
     group: object = None
 
 
-#: no split: the one-device ops (no model axis, and every decode step)
+#: no split: the one-device ops (no model axis)
 NO_SPLIT = _Split()
 
 
 def _split(cfg: ModelConfig) -> _Split:
-    """The step's split under the installed context: the loss and the
-    prefill work it out once and hand it down."""
+    """The step's split under the installed context: the loss, the prefill
+    and the decode step work it out once and hand it down."""
     ax = model_axis()
     if ax is None:
         return NO_SPLIT
@@ -185,10 +186,10 @@ def _split(cfg: ModelConfig) -> _Split:
 
 
 def split_params(cfg: ModelConfig) -> set[str]:
-    """The parameters the loss and the prefill take as this process's part
-    of their model split under the installed context (each as the step
-    holds it, gathered over the other axes); they take every other
-    parameter whole."""
+    """The parameters the loss, the prefill and the decode step take as
+    this process's part of their model split under the installed context
+    (each as the step holds it, gathered over the other axes); they take
+    every other parameter whole."""
     s = _split(cfg)
     names = ({"wq"} if s.q else set()) | ({"wk", "wv"} if s.kv else set())
     names |= ({"wo"} if s.out else set())
@@ -305,11 +306,15 @@ def _ffn(cfg: ModelConfig, x, lp, *, s: _Split = NO_SPLIT):
                 num_real=cfg.moe.num_experts, mesh=ctx.mesh,
                 dp_axes=ctx.dp_axes, ep_axis=ctx.ep_axis)
         else:
+            # under a step's context, the aux loss's fractions are
+            # averaged over the batch axes (this process holds its rows)
             y, aux = moe_lib.moe_ffn(
                 h, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
                 top_k=cfg.moe.top_k,
                 capacity_factor=cfg.moe.capacity_factor,
-                num_real=cfg.moe.num_experts)
+                num_real=cfg.moe.num_experts,
+                mesh=None if ctx is None else ctx.mesh,
+                dp_axes=() if ctx is None else ctx.dp_axes)
     else:
         # column- then row-split over the model axis where s.mlp
         hs = copy_to_group(h, s.group) if s.mlp else h
@@ -370,22 +375,27 @@ def _embed_in(params, cfg: ModelConfig, batch, *, s: _Split = NO_SPLIT):
         return x, batch["positions"]
     tokens = batch["tokens"]
     B, S = tokens.shape
-    ids = tokens.reshape(-1).long()
-    if s.vocab:
-        part = split_of(cfg.vocab)
-        ids = ids - part.start
-        inside = (ids >= 0) & (ids < part.stop - part.start)
-        x = torch.index_select(params["embed"], 0,
-                               ids.clamp(0, part.stop - part.start - 1))
-        x = shard_hint(torch.where(inside[:, None], x, 0).reshape(B, S, -1),
-                       ("batch", None, None), (B, S, cfg.d_model),
-                       partial=True)
-    else:
-        x = torch.index_select(params["embed"], 0, ids)
-    x = _embed_scale(cfg, x.reshape(B, S, -1))
+    x = _embed_scale(cfg, _lookup(params, cfg, tokens, s=s))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     return x, positions
+
+
+def _lookup(params, cfg: ModelConfig, tokens, *, s: _Split = NO_SPLIT):
+    """The tokens' [B, S] rows of the table [B, S, D], unscaled (see
+    ``_embed_in``)."""
+    B, S = tokens.shape
+    ids = tokens.reshape(-1).long()
+    if not s.vocab:
+        return torch.index_select(params["embed"], 0, ids).reshape(B, S, -1)
+    part = split_of(cfg.vocab)
+    ids = ids - part.start
+    inside = (ids >= 0) & (ids < part.stop - part.start)
+    x = torch.index_select(params["embed"], 0,
+                           ids.clamp(0, part.stop - part.start - 1))
+    return shard_hint(torch.where(inside[:, None], x, 0).reshape(B, S, -1),
+                      ("batch", None, None), (B, S, cfg.d_model),
+                      partial=True)
 
 
 def _layer_spans(cfg: ModelConfig) -> list[tuple[int, int]]:
@@ -506,30 +516,48 @@ def decode_step(params, cfg: ModelConfig, cache, batch):
     ``cache["v"]`` IN PLACE; the returned dict shares those tensors and
     carries ``length + 1``.  Under the sharded decode step the cache is
     this process's shard of the ``kv_seq``-split cache (``write_token``,
-    ``decode_attention``)."""
+    ``decode_attention``).
+
+    Where the step splits the compute over the model axis (``_Split``, as
+    the prefill does), the token is looked up in this process's vocab
+    rows, q, k and v are computed on its heads, and only the one token's
+    q, k and v [B, 1, H/m, hd] are gathered over the axis: the cache
+    holds every head of this process's key range, so the
+    sequence-parallel attention runs every head.  Its output's columns of
+    this process's heads meet ``wo``'s rows, the MLP runs column-split
+    (or on this process's experts), each partial reduced at the
+    residual's hint, and the logits are vocab-split and gathered."""
+    s = _split(cfg)
     if cfg.input_mode == "embeds" and "embeds" in batch:
-        x, positions = _embed_in(params, cfg, batch)
+        x, positions = _embed_in(params, cfg, batch, s=s)
     else:
-        x = _embed_scale(cfg, params["embed"][batch["token"].long()])
+        x = _embed_scale(cfg, _lookup(params, cfg, batch["token"], s=s))
         positions = batch["pos"][:, None]
     if cfg.mrope and positions.dim() == 2:
         positions = torch.stack([positions] * 3, dim=-1)
     sin, cos = _angles(cfg, positions)
     length = cache["length"]
-    B = x.shape[0]
+    B, D = x.shape[0], cfg.d_model
+    Hq, KV = cfg.num_heads, cfg.num_kv_heads
     layers = _layer_params(params, cfg)
     for i, window in enumerate(_layer_windows(cfg)):
         lp = layers[i]
-        q, k, v = _qkv(cfg, x, lp, sin, cos)
+        q, k, v = _qkv(cfg, x, lp, sin, cos, s=s)
+        q, k, v = (_whole(q, s.group, 2, Hq), _whole(k, s.group, 2, KV),
+                   _whole(v, s.group, 2, KV))
         kc, vc = cache["k"][i], cache["v"][i]          # views: [B, Smax, KV, hd]
         write_token(kc, k, length, entry="k")
         write_token(vc, v, length, entry="v")
         out = decode_attention(q, kc, vc, length + 1, window=window,
                                softcap=cfg.attn_softcap, entry="k")
-        x = x + out.reshape(B, 1, -1) @ lp["wo"]
-        x, _ = _ffn(cfg, x, lp)
+        out = out.reshape(B, 1, -1)
+        if s.out:
+            out = split_to_group(out, s.group, 2)
+        x = x + shard_hint(out @ lp["wo"], ("batch", None, None), (B, 1, D),
+                           partial=s.out)
+        x, _ = _ffn(cfg, x, lp, s=s)
     new_cache = {"k": cache["k"], "v": cache["v"], "length": length + 1}
-    return _logits(params, cfg, x), new_cache
+    return _logits(params, cfg, x, s=s), new_cache
 
 
 # ---------------------------------------------------------------- assembly

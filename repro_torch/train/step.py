@@ -18,9 +18,11 @@ per-arch rule table (``state_shardings``), and the step computes the
 one-device step's values: every process gathers the parameters over the
 axes other than ``model``, runs the forward and backward on its data
 rank's rows of the global batch (the kernels take the plain local
-tensors), averages the gradients over the batch axes, and applies AdamW
-(elementwise) to its own shard of every parameter and slot (Adafactor,
-which is not elementwise, is refused on a mesh that shards the state).
+tensors), averages the gradients over the batch axes, and applies the
+optimizer to its own shard of every parameter and slot: AdamW element by
+element, Adafactor with each of its reductions over a parameter's dims
+summed over the mesh groups that split those dims (``update(...,
+splits=)``).
 
 Over the model axis, a family with tensor-parallel compute (the
 transformer's ``api.split_params``) splits its compute as the
@@ -44,10 +46,14 @@ the serving cache sharded by the rule table (``cache_shardings``: its
 sequence dim on ``kv_seq``, the model axis).  The sharded prefill splits
 its compute over the model axis as the train step does (or repeats it, for
 the other families) and keeps each process's box of the cache; the
-sharded decode takes every parameter whole, computes on each process's
-cache shard and exchanges only per-token results (the sequence-parallel
-``decode_attention``'s log-sum-exp combine, the width-split RG-LRU
-step's and the cross-attention heads' gathers).
+sharded decode computes on each process's cache shard and exchanges only
+per-token results (the sequence-parallel ``decode_attention``'s
+log-sum-exp combine, the width-split RG-LRU step's and the
+cross-attention heads' gathers).  A tensor-parallel family's decode
+splits its products over the model axis as its prefill does (this
+process's heads, MLP part and vocab rows, the one token's q, k and v
+gathered for the attention); the other families take every parameter
+whole.
 """
 
 from __future__ import annotations
@@ -180,6 +186,38 @@ def _gather(name: str, p, mesh, local: frozenset[str]) -> torch.Tensor:
     return t
 
 
+def _param_splits(mesh, shardings, specs) -> dict[str, dict[int, list]]:
+    """{param: {dim: groups}}: the mesh groups of more than one process
+    that split each dim of each parameter (in mesh-dim order), for an
+    optimizer that reduces over a parameter's dims.  Its factored slots
+    must lie as the parameter does with the reduced dim dropped, as the
+    rule tables place them; raises where one does not."""
+    sizes, names = mesh_shape(mesh), list(mesh_shape(mesh))
+    out = {}
+    for key, pl in shardings.items():
+        if not key.startswith("params/"):
+            continue
+        n = key[len("params/"):]
+        split = {}
+        for i, p in enumerate(pl):
+            if p.is_shard() and sizes[names[i]] > 1:
+                split.setdefault(p.dim, []).append(mesh.get_group(names[i]))
+        out[n] = split
+        ndim = len(specs[key].shape)
+        for slot, drop in (("vr", ndim - 1), ("vc", ndim - 2)):
+            got = shardings.get(f"opt/{slot}/{n}")
+            if got is None:
+                continue
+            want = [p if not p.is_shard() or p.dim < drop
+                    else (Shard(p.dim - 1) if p.dim > drop else Replicate())
+                    for p in pl]
+            if list(got) != want:
+                raise NotImplementedError(
+                    f"opt/{slot}/{n} lies on {list(got)}, not as {key} "
+                    f"({list(pl)}) with dim {drop} dropped")
+    return out
+
+
 def _split_state(state):
     params = {k[len("params/"):]: v for k, v in state.items()
               if k.startswith("params/")}
@@ -306,15 +344,10 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
 
     st_sh = state_shardings(mesh, rules, specs)
     sizes = mesh_shape(mesh)
-    if not optimizer.elementwise and any(
-            p.is_shard() and n > 1 for pl in st_sh.values()
-            for p, n in zip(pl, sizes.values())):
-        # its scale and clip reduce over whole parameters (or leading
-        # slices), which a process's shard does not hold
-        raise NotImplementedError(
-            f"{optimizer.name} on a mesh that shards the state: the "
-            f"sharded step applies the optimizer to each process's shard, "
-            f"which only an elementwise optimizer allows")
+    # an optimizer that reduces over a parameter's dims (Adafactor) learns
+    # which groups split them; AdamW updates each element alone
+    opt_kw = ({} if optimizer.elementwise
+              else {"splits": _param_splits(mesh, st_sh, specs)})
     b_sh = batch_shardings(mesh, rules, b_specs)
     # the batch axes' groups, if the batch is sharded over any of them
     batch_sharded = any(p.is_shard() for p in next(iter(b_sh.values())))
@@ -366,7 +399,8 @@ def make_train_step(api: TorchModelApi, optimizer, schedule,
             owned = {n: own(n, grads[n], params[n]) for n in names}
             new_params, new_opt = optimizer.update(
                 {n: p.to_local() for n, p in params.items()}, owned,
-                {k: v.to_local() for k, v in opt.items()}, lr, local_step)
+                {k: v.to_local() for k, v in opt.items()}, lr, local_step,
+                **opt_kw)
             new_state = _join_state(
                 {n: from_local(t, mesh, params[n].placements,
                                params[n].shape)
@@ -547,10 +581,12 @@ def make_decode_step(api: TorchModelApi, *, mesh=None,
     the cache shard it holds (``decode_splits``, read by the models through
     the context): the sequence-parallel ``decode_attention`` and the
     width-split RG-LRU step exchange per-token results over the model
-    axis, never a cache entry.  Returns the logits as a DTensor of rows and
-    the cache as DTensors on its placements."""
+    axis, never a cache entry; a tensor-parallel family computes on this
+    process's parts of the parameters it splits (``local_params``).
+    Returns the logits as a DTensor of rows and the cache as DTensors on
+    its placements."""
     rules = rules or rules_for(api.cfg.arch)
-    ctx = mesh_context_for(ONE_DEVICE if mesh is None else mesh, rules)
+    ctx = mesh_context_for(ONE_DEVICE if mesh is None else mesh, rules, api)
     if _one_process(mesh):
         return ServeStep(fn=api.decode_step, ctx=ctx)
     full = _params_once(mesh, local_params(api, ctx))

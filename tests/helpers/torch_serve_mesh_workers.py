@@ -30,6 +30,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.store import DatasetStore
 from repro_torch.core.tensor_ckpt import TensorCheckpoint
 from repro_torch.core.torch_io import layout_from_torch, load_torch, save_torch
+from repro_torch.distrib import collectives
 from repro_torch.distrib.context import DimSplit, MeshContext, use_mesh_context
 from repro_torch.distrib.rules import from_local, local_box, rules_for
 from repro_torch.launch.mesh import make_debug_mesh
@@ -41,6 +42,11 @@ from repro_torch.train.step import make_decode_step, make_prefill_step
 FAMILIES = ("smollm_135m", "granite_moe_3b_a800m", "recurrentgemma_9b",
             "xlstm_350m", "whisper_base")
 MESHES = ((2, 2), (1, 4), (4, 1))
+#: the transformer family, whose decode computes on this process's heads,
+#: MLP part (or experts) and vocab rows where the model axis splits
+LOCAL_ARCHS = ("smollm_135m", "qwen3_1_7b", "gemma2_2b", "qwen3_4b",
+               "qwen2_vl_7b", "granite_moe_3b_a800m", "kimi_k2_1t_a32b")
+LOCAL_MESHES = ((2, 2), (1, 4))
 # batch, prompt and decode steps: the cache of P + G = 12 positions splits
 # over a model axis of 2 and of 4; recurrentgemma's ring of 8 slots wraps
 B, P, G = 4, 8, 4
@@ -97,12 +103,25 @@ class _Exchange:
         dist.all_gather, dist.all_reduce = self._gather, self._reduce
 
 
-def _serve(arch, params, mesh, cache_len, steps, after=None):
+def _model_traffic(mesh) -> dict[str, int]:
+    """The bytes this process sent over the model axis since the count was
+    reset, by kind."""
+    if dict(zip(mesh.mesh_dim_names, mesh.shape))["model"] == 1:
+        return {"activation": 0, "parameter": 0}
+    group = mesh.get_group("model")
+    return {k: collectives.traffic.of(group, k)
+            for k in ("activation", "parameter")}
+
+
+def _serve(arch, params, mesh, cache_len, steps, after=None, cfg=None,
+           traffic=None):
     """Prefill and ``steps`` greedy decode steps on ``mesh``; returns the
     full logits of each ([steps + 1, B, V]), the bytes each decode step
     but the first exchanged (the first gathers the parameters), and what
-    ``after(i, params, cache)`` returned after decode step i."""
-    cfg = serve_config(arch)
+    ``after(i, params, cache)`` returned after decode step i.  With a
+    dict ``traffic``, it gets each decode step's bytes over the model
+    axis by kind (``collectives.traffic``)."""
+    cfg = cfg or serve_config(arch)
     api, rules = build_model(cfg), serve_rules(arch)
     prefill = make_prefill_step(api, ShapeConfig("p", P, B, "prefill"),
                                 cache_len=cache_len, mesh=mesh, rules=rules)
@@ -116,8 +135,11 @@ def _serve(arch, params, mesh, cache_len, steps, after=None):
             n = len(tok)
             pos = torch.full((n,), P + i, dtype=torch.int32)
             ex.on, ex.bytes = i > 0, 0
+            collectives.traffic.reset()
             logits, cache = decode(params, cache, {"token": tok, "pos": pos})
             ex.on = False
+            if traffic is not None:
+                traffic.setdefault("steps", []).append(_model_traffic(mesh))
             sent.append(ex.bytes)
             out.append(logits.full_tensor())
             tok = greedy(logits)
@@ -217,6 +239,21 @@ def serve_families(inits: dict, store_dir: str) -> dict:
                                 "seconds": time.perf_counter() - t0}
             if save:
                 out[shape][arch]["saved"] = kept[SAVE_AFTER]
+    for shape in LOCAL_MESHES:
+        mesh = make_debug_mesh(*shape, device_type="cpu")
+        for arch in LOCAL_ARCHS:
+            traffic = {}
+            logits, _, _ = _serve(arch, inits[arch], mesh, P + G, G,
+                                  traffic=traffic)
+            out[shape].setdefault(arch, {}).update(
+                {"local_logits": logits, "traffic": traffic["steps"]})
+        # smollm at twice its d_ff (seeded parameters): the model axis's
+        # bytes a decode step sends
+        cfg = dataclasses.replace(serve_config("smollm_135m"), d_ff=256)
+        wide, traffic = build_model(cfg).init(
+            torch.Generator().manual_seed(0)), {}
+        _serve("smollm_135m", wide, mesh, P + G, G, cfg=cfg, traffic=traffic)
+        out[shape]["wide"] = traffic["steps"]
     return out
 
 

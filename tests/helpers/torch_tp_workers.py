@@ -218,12 +218,13 @@ def card_config(layers: int):
                                attention_impl="pallas", remat=True)
 
 
-def load_kept(kept_dir: str, n: int) -> list[dict]:
-    """What ``card_tp_train``'s ``n`` processes kept: each one's shards and
-    their boxes (as slices)."""
+def load_kept(kept_dir: str, n: int, prefix: str = "rank") -> list[dict]:
+    """What ``n`` processes kept under ``kept_dir/<prefix><r>.pt``
+    (``card_tp_train``'s, or ``torch_adafactor_workers``'s): each one's
+    shards and their boxes (as slices)."""
     out = []
     for r in range(n):
-        kept = torch.load(f"{kept_dir}/rank{r}.pt")
+        kept = torch.load(f"{kept_dir}/{prefix}{r}.pt")
         kept["boxes"] = {k: tuple(slice(a, b) for a, b in zip(*v))
                          for k, v in kept["boxes"].items()}
         out.append(kept)
@@ -372,13 +373,13 @@ def card_one_process(layers: int, B: int, S: int, steps: int, seed: int,
     return init, state, history, ms
 
 
-def _rtol(name: str) -> float:
+def _rtol(name: str, table: dict = CARD_RTOL) -> float:
     if name == "grad_norm":
-        return CARD_RTOL["grad_norm"]
+        return table["grad_norm"]
     if "/" not in name:
-        return CARD_RTOL["metric"]
+        return table["metric"]
     kind = "update" if name.startswith("params/") else "slot"
-    return CARD_RTOL[f"embed_{kind}" if name.endswith("/embed") else kind]
+    return table[f"embed_{kind}" if name.endswith("/embed") else kind]
 
 
 def _ratio(got, want, rtol: float) -> float:
@@ -389,29 +390,47 @@ def _ratio(got, want, rtol: float) -> float:
     return err / (rtol * scale) if scale else (0.0 if err == 0 else np.inf)
 
 
-def card_errors(metrics: list, kept: list, one) -> dict[str, float]:
-    """Each value's error over its ``CARD_RTOL`` (at most 1 within
-    tolerance): the TP run's ``metrics`` per step and every process's
-    ``kept`` shards (``load_kept``) against the one-process run ``one``
-    (``card_one_process``'s value); a parameter by its update in the
-    2-norm, every other value by its max."""
+def card_errors(metrics: list, kept: list, one, device: str = "cpu",
+                min_change_ulps: float = 0.0,
+                rtol: dict = CARD_RTOL) -> dict[str, float]:
+    """Each value's error over its tolerance in ``rtol`` (at most 1 within
+    it; ``CARD_RTOL``, bf16's, by default): the TP run's ``metrics`` per
+    step and every process's ``kept`` shards (``load_kept``) against the
+    one-process run ``one`` (``card_one_process``'s value); a parameter by
+    its update in the 2-norm, every other value by its max, computed on
+    ``device``.
+
+    ``min_change_ulps`` > 0 holds a parameter's update over the elements
+    whose one-process change is at least that many spacings of the
+    parameter's dtype at the element's value: where a step moves a stored
+    bf16 value by about one spacing, the two runs' last-bit differences
+    decide which way it rounds, and the update's 2-norm measures those
+    roundings rather than the step."""
     init, final, history, _ = one
     out = {}
     for i, (g, w) in enumerate(zip(metrics, history)):
         for k in w:
             out[f"step {i + 1} {k}"] = _ratio(torch.tensor(g[k]),
-                                              torch.tensor(w[k]), _rtol(k))
+                                              torch.tensor(w[k]),
+                                              _rtol(k, rtol))
     for r in kept:
         for k, t in r["local"].items():
             if k == "step":
                 continue
-            want = final[k][r["boxes"][k]].cpu()
+            t = t.to(device)
+            want = final[k][r["boxes"][k]].to(device)
             if k.startswith("params/"):
-                start = init[k][r["boxes"][k]].cpu().double()
+                start = init[k][r["boxes"][k]].to(device).double()
                 du, dw = t.double() - start, want.double() - start
+                if min_change_ulps:
+                    spacing = torch.finfo(want.dtype).eps * torch.exp2(
+                        torch.floor(torch.log2(want.double().abs().clamp_min(
+                            torch.finfo(want.dtype).tiny))))
+                    moved = dw.abs() >= min_change_ulps * spacing
+                    du, dw = du[moved], dw[moved]
                 e = float(torch.linalg.norm(du - dw)
-                          / (_rtol(k) * torch.linalg.norm(dw)))
+                          / (_rtol(k, rtol) * torch.linalg.norm(dw)))
             else:
-                e = _ratio(t, want, _rtol(k))
+                e = _ratio(t, want, _rtol(k, rtol))
             out[k] = max(out.get(k, 0.0), e)
     return out

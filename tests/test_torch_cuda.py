@@ -897,3 +897,83 @@ def test_tp_step_on_processes_that_share_the_card(cuda, tmp_path,
     errors = card_errors(ranks[0]["metrics"], kept, one)
     worst = max(errors.items(), key=lambda kv: kv[1])
     assert worst[1] <= 1.0, worst
+
+
+def test_adafactor_mesh_on_processes_that_share_the_card(cuda, tmp_path,
+                                                         monkeypatch):
+    """kimi-k2 at full width, 1 layer, 16 experts (EP), in f32 (its
+    attention on the blocked plain path: the flash kernels take bf16, and
+    ``chip_smoke.py``'s ``adafactor_mesh`` runs them at a process's
+    heads), B 2, S 256, on a (1, 2) mesh of 2 processes that share the
+    card (gloo), each with 32 query and 4 kv heads, 8 experts and half the
+    vocab (top-8 of 8 experts would choose every expert, which makes the
+    aux loss's gradient, the only one a sequence's last token gets, zero
+    up to rounding, and Adafactor's row normalisation would turn that
+    rounding into a whole step of its embedding row): the sharded Adafactor step, its reductions summed over the
+    model axis, 2 steps against the one-process card steps within
+    tests/test_torch_mesh_train.py's f32 tolerances and step 1 again
+    bit-equal; the decode on local heads, fed the one-process decode's
+    tokens, choosing them again with logits within 1e-4 of their scale;
+    no parameter bytes over the model axis; the smoke config's sharded
+    Adafactor state restored on one process bit-equal to every process's
+    shards.  In f32 a step moves each weight by many spacings, so the
+    whole update is held (in bf16 most move about one, and the two runs'
+    last bits decide which way they round: ``ADA_MIN_CHANGE_ULPS``)."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from helpers import torch_adafactor_workers as W
+    from helpers.torch_tp_workers import card_errors
+    from test_torch_mesh_train import RTOL
+
+    from repro_torch.core.store import DatasetStore
+    from repro_torch.core.tensor_ckpt import TensorCheckpoint
+    from repro_torch.core.torch_io import load_torch
+    from repro_torch.launch.spawn import run_processes
+    from repro_torch.models.api import build_model
+    from repro_torch.train.optim import Adafactor
+    from repro_torch.train.step import init_train_state
+
+    cfg = dataclasses.replace(W.card_config(1, 16), dtype="float32",
+                              attention_impl="xla_flash")
+    B, S, steps, P, G, m = 2, 256, 2, 64, 4, 2
+    lr, warmup = 0.005, 2
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    try:
+        one_logits, tokens = W.card_one_process(cfg, B, P, G, 0)
+        one = W.card_one_train(cfg, B, S, steps, 0, lr, warmup, steps)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    store, kept_dir = tmp_path / "store", tmp_path / "kept"
+    kept_dir.mkdir()
+    ranks = run_processes(W.card_adafactor_mesh, m, (
+        (1, m), cfg, B, S, steps, 1, 0, lr, warmup, steps, tokens, P,
+        str(store), str(kept_dir)), timeout=300, pg_timeout=120)
+    for r in ranks:
+        assert r["launches"]["ckpt_pack"] > 0
+        for what in ("model_bytes", "serve_model_bytes"):
+            assert r[what]["parameter"] == 0 and r[what]["activation"] > 0
+        assert r["repeat_differs"] == [] and r["repeat_metrics_equal"]
+        assert r["metrics"] == ranks[0]["metrics"]
+    errors = card_errors(ranks[0]["metrics"],
+                         W.load_kept(str(kept_dir), m), one,
+                         rtol=RTOL["float32"])
+    worst = max(errors.items(), key=lambda kv: kv[1])
+    assert worst[1] <= 1.0, worst
+    agree = W.logit_agreement(ranks[0]["logits"], one_logits, tokens)
+    assert agree["logits_err_over_scale"] <= 1e-4, agree
+    assert agree["argmax_flips"] == [], agree
+    small = build_model(W.config(*W.SAVED))
+    target = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in init_train_state(
+                  small, Adafactor(), torch.Generator().manual_seed(0)).items()}
+    restored = load_torch(TensorCheckpoint(DatasetStore(str(store), "r")),
+                          target, 2, device="cuda")
+    for r in W.load_kept(str(kept_dir), m, "smoke"):
+        for k, t in r["local"].items():
+            got = restored[k][r["boxes"][k]].cpu()
+            assert torch.equal(got.reshape(-1).view(torch.uint8),
+                               t.reshape(-1).view(torch.uint8)), k

@@ -396,18 +396,41 @@ def test_adafactor_update_matches_reference(dtype):
 
 
 def test_sharded_step_refuses_adafactor_where_the_state_is_sharded():
-    """The sharded step applies the optimizer to each process's shard;
-    Adafactor's scale and clip reduce over whole parameters (or leading
-    slices), so a mesh that shards the state is refused, and a (1, 1)
-    mesh, where every process holds every array whole, is not."""
+    """No longer refused: the sharded step sums each of Adafactor's
+    reductions over the groups that split the parameter's dims
+    (``tests/test_torch_adafactor_mesh.py`` holds its values to the
+    reference's).  On a (2, 2) mesh (a fake process group of 4, which
+    builds the groups and moves nothing) the step builds, its state
+    shardings are the rule table's, ``we_gate`` is split over both axes,
+    and each factored slot lies as its parameter with the reduced dim
+    dropped; a (1, 1) mapping builds as before."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
     from repro_torch.configs.base import ShapeConfig as TorchShapeConfig
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.train.step import make_train_step
 
     tapi = torch_build_model(torch_smoke_config(ARCH))
     shape = TorchShapeConfig("t", 16, 4, "train")
-    with pytest.raises(NotImplementedError, match="adafactor on a mesh"):
-        make_train_step(tapi, Adafactor(), lambda s: 1e-3, shape,
-                        mesh={"data": 2, "model": 2})
+    rules = rules_for(torch_get_config(ARCH).arch)
+    specs = train_state_specs(tapi, Adafactor())
+    dist.init_process_group("fake", rank=0, world_size=4, store=FakeStore())
+    try:
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        step = make_train_step(tapi, Adafactor(), lambda s: 1e-3, shape,
+                               mesh=mesh, rules=rules)
+        assert step.state_shardings == {
+            n: rules.sharding_for(mesh, s.axes, s.shape)
+            for n, s in specs.items()}
+    finally:
+        dist.destroy_process_group()
+    sh = step.state_shardings
+    assert sh["params/we_gate"] == [Shard(2), Shard(1)]
+    assert sh["opt/vr/we_gate"] == [Shard(2), Shard(1)]
+    assert sh["opt/vc/we_gate"] == [Replicate(), Shard(1)]
+    assert sh["opt/vr/unembed"] == [Replicate(), Shard(0)]
     step = make_train_step(tapi, Adafactor(), lambda s: 1e-3, shape,
                            mesh={"data": 1, "model": 1})
     assert step.state_shardings["params/we_gate"] is not None

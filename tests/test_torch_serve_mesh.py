@@ -13,6 +13,12 @@ simulated devices.
   their scale and the same greedy tokens as the reference's;
 * a decode step exchanges per-token results only: its bytes do not grow
   with the cache;
+* the transformer family's decode on local heads (smollm, qwen3-1.7b,
+  gemma2, qwen3-4b, qwen2-vl, granite and kimi-k2, EP for the MoE
+  configs) on (2, 2) and (1, 4): logits within 1e-5 of the reference's
+  sharded decode and the same tokens; no parameter whose split matches
+  its activation's is gathered, and the bytes over the model axis do not
+  grow with d_ff; on a (1, 1) mesh, bit for bit the one-device steps;
 * smollm's ``kv_seq``-sharded cache saved by 4 processes mid-decode
   restores bit-equal on 1 and on 2 processes, whose decode goes on with
   the uninterrupted run's tokens;
@@ -65,7 +71,7 @@ PG_TIMEOUT = 60
 TOL = 1e-5
 
 _JAX = r"""
-import dataclasses, sys
+import dataclasses, json, sys
 import jax, numpy as np
 from jax.sharding import AxisType
 from repro.configs import get_config, get_smoke_config
@@ -74,12 +80,12 @@ from repro.distrib.rules import rules_for
 from repro.models.api import build_model, make_token_batch
 from repro.train.step import make_decode_step, make_prefill_step
 
-out = sys.argv[1]
+out, cells = sys.argv[1], json.loads(sys.argv[2])
 B, P, G = %(bpg)r
-for shape in %(meshes)r:
-    mesh = jax.make_mesh(shape, ("data", "model"),
+for shape, archs in cells:
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
-    for arch in %(families)r:
+    for arch in archs:
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
         if cfg.moe is not None:
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -101,7 +107,13 @@ for shape in %(meshes)r:
             seen.append(np.asarray(logits))
         np.save(f"{out}/{shape[0]}x{shape[1]}_{arch}.npy", np.stack(seen))
 print("OK")
-""" % {"bpg": (W.B, W.P, W.G), "meshes": W.MESHES, "families": W.FAMILIES}
+""" % {"bpg": (W.B, W.P, W.G)}
+#: the reference's cells, (mesh, archs), in two subprocesses: the
+#: families on every mesh, and the rest of the transformer family on the
+#: meshes whose model axis splits
+_CELLS = ([[shape, list(W.FAMILIES)] for shape in W.MESHES],
+          [[shape, [a for a in W.LOCAL_ARCHS if a not in W.FAMILIES]]
+           for shape in W.LOCAL_MESHES])
 
 
 def _ref_params(arch: str) -> dict[str, torch.Tensor]:
@@ -122,11 +134,13 @@ def runs(tmp_path_factory):
     store = str(tmp_path_factory.mktemp("serve_mesh_store") / "ck")
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    proc = subprocess.Popen([sys.executable, "-c", _JAX, str(ref)], env=env,
-                            cwd=REPO, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    procs = [subprocess.Popen([sys.executable, "-c", _JAX, str(ref),
+                               json.dumps(cells)], env=env, cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cells in _CELLS]
     try:
-        inits = {arch: _ref_params(arch) for arch in W.FAMILIES}
+        inits = {arch: _ref_params(arch)
+                 for arch in W.FAMILIES + W.LOCAL_ARCHS}
         four = run_processes(W.serve_families, 4, (inits, store),
                              timeout=TIMEOUT, pg_timeout=PG_TIMEOUT,
                              threads=1)
@@ -136,11 +150,14 @@ def runs(tmp_path_factory):
         two = run_processes(W.restore_and_decode, 2,
                             ((1, 2), store, inits[W.SAVE_ARCH], resume),
                             timeout=TIMEOUT, pg_timeout=PG_TIMEOUT, threads=1)
-        out, err = proc.communicate(timeout=TIMEOUT)
+        for proc in procs:
+            out, err = proc.communicate(timeout=TIMEOUT)
+            assert proc.returncode == 0 and out.strip().endswith("OK"), \
+                err[-4000:]
     finally:
-        if proc.poll() is None:
-            proc.kill()
-    assert proc.returncode == 0 and out.strip().endswith("OK"), err[-4000:]
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
     return {"ref": ref, "store": store, "inits": inits, "four": four,
             "two": two, "resume": resume}
 
@@ -229,6 +246,105 @@ def test_decode_exchanges_per_token_results_only(runs, shape):
             assert len(sent) == 1, (arch, run["sent"], run["sent_longer"])
             if model > 1 and arch != "xlstm_350m":
                 assert sent.pop() > 0, arch
+
+
+# ----------------------------------------- the decode step on local heads
+@pytest.mark.parametrize("arch", W.LOCAL_ARCHS)
+@pytest.mark.parametrize("shape", W.LOCAL_MESHES)
+def test_local_head_decode_matches_the_reference(runs, shape, arch):
+    """Every transformer-family smoke config (qk-norm, softcap and window,
+    embeddings input, EP experts) on a mesh whose model axis splits: a
+    prefill and 4 decode steps on this process's heads, MLP part or
+    experts and vocab rows, every process's logits alike, within 1e-5 of
+    the scale of the reference's sharded steps, and the same tokens."""
+    want = np.load(runs["ref"] / f"{shape[0]}x{shape[1]}_{arch}.npy")
+    got = [r[shape][arch]["local_logits"] for r in runs["four"]]
+    for g in got[1:]:
+        assert np.array_equal(g, got[0])
+    err = np.abs(got[0] - want).max() / np.abs(want).max()
+    assert err <= TOL, err
+    assert np.array_equal(got[0].argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", W.LOCAL_ARCHS)
+@pytest.mark.parametrize("shape", W.LOCAL_MESHES)
+def test_local_head_decode_gathers_no_aligned_parameter(runs, shape, arch):
+    """A decode step takes each parameter whose split matches its
+    activation's as this process's part: the only parameter bytes over
+    the model axis are the first step's gathers of the others (none on
+    (2, 2); on (1, 4) the kv heads' ``wk`` and ``wv``, whose 2 heads do
+    not split 4 ways), and none after it."""
+    from test_torch_tp import _expected
+
+    _, gathered = _expected(arch, shape)
+    if shape == (2, 2):
+        assert gathered == 0
+    for r in runs["four"]:
+        steps = r[shape][arch]["traffic"]
+        assert steps[0]["parameter"] == gathered
+        assert all(t["parameter"] == 0 for t in steps[1:])
+        assert all(t["activation"] > 0 for t in steps)
+
+
+@pytest.mark.parametrize("shape", W.LOCAL_MESHES)
+def test_local_head_decode_bytes_do_not_grow_with_d_ff(runs, shape):
+    """smollm's decode steps at d_ff 128 and 256 send the same bytes over
+    the model axis (the MLP's hidden never leaves its process)."""
+    for r in runs["four"]:
+        narrow = r[shape]["smollm_135m"]["traffic"]
+        assert narrow == r[shape]["wide"]
+
+
+@pytest.fixture
+def world_of_one():
+    from repro_torch.launch import mesh as launch_mesh
+
+    launch_mesh.init_distributed("cpu", rank=0, world_size=1,
+                                 init_method=f"tcp://localhost:"
+                                             f"{launch_mesh.free_port()}",
+                                 timeout=30)
+    try:
+        yield launch_mesh.make_debug_mesh(1, 1, device_type="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", W.LOCAL_ARCHS)
+def test_one_process_mesh_decode_is_the_one_device_decode(world_of_one,
+                                                          arch):
+    """On a (1, 1) mesh the model axis splits nothing: the prefill and 4
+    decode steps give the one-device steps' logits and cache bit for
+    bit."""
+    from repro_torch.configs.base import ShapeConfig as TorchShapeConfig
+    from repro_torch.launch.serve import greedy, shard_params
+    from repro_torch.train.step import make_prefill_step
+
+    mesh, cfg = world_of_one, W.serve_config(arch)
+    api, rules = build_model(cfg), W.serve_rules(arch)
+    params = api.init(torch.Generator().manual_seed(0))
+    pshape = TorchShapeConfig("p", W.P, W.B, "prefill")
+    sharded = shard_params(api, params, mesh, rules)
+    batch = W.prompt(cfg)
+    with torch.no_grad():
+        a = make_prefill_step(api, pshape, W.P + W.G)(params, batch)
+        b = make_prefill_step(api, pshape, W.P + W.G, mesh=mesh,
+                              rules=rules)(sharded, batch)
+        plain = make_decode_step(api)
+        split = make_decode_step(api, mesh=mesh, rules=rules)
+        for i in range(W.G + 1):
+            assert torch.equal(a[0].view(torch.int32),
+                               b[0].to_local().view(torch.int32)), i
+            for k, t in a[1].items():
+                assert torch.equal(t.reshape(-1).view(torch.uint8),
+                                   b[1][k].to_local().reshape(-1)
+                                   .view(torch.uint8)), (i, k)
+            if i == W.G:
+                break
+            tok = greedy(a[0])
+            step = {"token": tok, "pos": torch.full((W.B,), W.P + i,
+                                                    dtype=torch.int32)}
+            a = plain(params, a[1], step)
+            b = split(sharded, b[1], step)
 
 
 def test_decode_refuses_a_split_it_does_not_take():
