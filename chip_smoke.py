@@ -7,17 +7,20 @@ training path: smollm-135m trained on the card, killed, and resumed from
 its N-to-M checkpoint; then the paper's own finite-element path at full
 size and the post-processing sweep of the training run's checkpoint; the
 restart across process counts; the MoE family, granite-moe-3b-a800m
-served at full size and trained at 2 layers; the rest of the dense
+served at full width (8 of 32 layers) and trained at 2 layers; the rest
+of the dense
 family, qwen3-4b and qwen2-vl-7b served through the flash kernel at head
 dim 128 and gemma2-2b served past its 4,096-token window; and the
 recurrent families' training, recurrentgemma-9b at 3 layers through the
-scan's gradient and xlstm-350m served, restarted and trained at full size;
-and the last two families: whisper-base (encoder-decoder) served,
-restarted and trained at full size, kimi-k2 served at one full-width layer
+scan's gradient and xlstm-350m served and restarted at 8 of 24 layers and
+trained at full width; and the last two families: whisper-base
+(encoder-decoder) served and restarted at 2 + 2 of its 6 + 6 layers and
+trained at full size, kimi-k2 served at one full-width layer
 and trained under Adafactor; the quickstart example; and serving on a
 mesh, a sharded KV cache served by 4 CPU processes and restored on the
 card; and tensor-parallel training, smollm-135m's heads, MLP and vocab
-split over 3 processes that share the card.
+split over 3 processes that share the card, recurrentgemma-9b's and
+whisper-base's over 4.
 
   device   the card's name and power limit (nvidia-smi);
   build    the hand-written kernels, compiled from this checkout's sources;
@@ -67,7 +70,7 @@ split over 3 processes that share the card.
            (``sweep_steps``), only the embedding table and the final norm
            loaded onto the card, each equal to the train phase's own bit for
            bit, the store reading no other array's datasets;
-  elastic  smollm-135m at full width (depth cut to 2 layers) trained sharded
+  elastic  smollm-135m at full width (depth cut to 1 layer) trained sharded
            over torch.distributed processes and restarted on other process
            counts: N = 4 CPU processes (gloo, mesh (2, 2)) save steps 2 and
            4 through rank 0's async writer, which a fault store kills 4 ops
@@ -76,7 +79,7 @@ split over 3 processes that share the card.
            processes held, trains to 4 through the flash kernel and saves
            step 4 through ckpt_pack; M = 2 CPU processes (mesh (1, 2))
            restore step 4, bit-equal to the card's state.
-  moe_serve  granite-moe-3b-a800m at full width and depth (32 layers, 40
+  moe_serve  granite-moe-3b-a800m at full width, 8 of its 32 layers (40
            experts padded to 48, top-8; seeded weights on the card) through
            the launcher's step builders on a (1, 1) mesh, so every MoE layer
            runs the expert-parallel ``moe_ffn_ep`` (its calls are counted):
@@ -121,19 +124,21 @@ split over 3 processes that share the card.
            again from the seed, bit-equal in every array; 3 ``rglru_scan``
            launches a recurrent layer a step (forward, remat's recompute,
            backward), counted and pinned.
-  xlstm_serve  xlstm-350m at full size through the launcher's
+  xlstm_serve  xlstm-350m at full width, 8 of its 24 layers, through the
+           launcher's
            ``serve_batch``: B 4, prompt 512, 32 decode steps; a repeated
            prefill bit-equal; decode steps against longer prefills in bf16,
            and in f32 for the same weights; the sLSTM loop's share of a
            prefill.
-  xlstm_state  its serving state after a B 2, prompt-512 prefill (101 MB)
+  xlstm_state  its serving state after a B 2, prompt-512 prefill (34 MB)
            saved as N=4 ranks, restored 4-to-1 onto the card bit for bit;
            8 decode steps from it and from the live state, logits
            bit-equal.
-  xlstm_train  xlstm-350m at full size, B 4, S 512: 4 steps and steps 1-2
+  xlstm_train  xlstm-350m at full width, B 4, S 512: 4 steps and steps 1-2
            again bit-equal; then runs A, B and C as in ``train`` at 2 layers
            (one mLSTM/sLSTM pair at full width), C bit-exact with A.
-  whisper_serve  whisper-base at full size (seeded bf16 weights) through
+  whisper_serve  whisper-base at full width, 2 + 2 of its 6 + 6 layers
+           (seeded bf16 weights), through
            the launcher's ``serve_batch``: B 4, 1,500 encoder frames, a
            prompt of 32 tokens, 32 decode steps; every attention on the
            blocked plain path (as the reference), so no kernel launches; a
@@ -173,8 +178,8 @@ split over 3 processes that share the card.
            and re-saves the cache as one rank (ckpt_pack); then the serve
            launcher on the card in the environment ``torchrun
            --nproc-per-node 1`` gives it (a (1, 1) NCCL mesh).
-  tp_train  tensor-parallel training: smollm-135m at full width, 2
-           layers, B 4, S 2048, bf16, remat, deterministic mode, on a (1,
+  tp_train  tensor-parallel training: smollm-135m at full width, 1
+           layer, B 4, S 2048, bf16, remat, deterministic mode, on a (1,
            3) mesh of 3 processes that share the card (gloo, which takes
            the card's tensors): each process computes on its own kv head
            and 3 query heads (the flash forward and backward kernels,
@@ -183,6 +188,16 @@ split over 3 processes that share the card.
            second run bit-equal; no parameter gathered over the model
            axis (only activation bytes on its group); the TP state saved
            through ckpt_pack and restored 3 -> 1 on the card bit for bit.
+           Then two legs on a (1, 4) mesh, each on a line of its own:
+           recurrentgemma-9b at full width and 3 layers (B 1, S 512;
+           each process's RG-LRU block on 1,024 of the 4,096 channels,
+           its rglru_scan launches counted, forward and reverse) and
+           whisper-base at full size (B 4, S 448), one spawn for both:
+           served in bf16 (a prefill and 8 decode steps on local heads and
+           channels, within the model's LOGITS_RTOL of one process's, the
+           same greedy tokens), 3 TP steps in f32 within CARD_RTOL_F32 of
+           the one-process steps, repeated bit-equal, and the smoke
+           config's sharded state restored 4 -> 1 bit for bit.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of a path that never launched fails the run (the fem,
@@ -306,11 +321,12 @@ HYBRID_TRAIN_STEPS, HYBRID_REPEAT_STEPS = 4, 2
 
 # the train phase: SmolLM's published context of 2,048 tokens at batch 4
 # (8,192 tokens a step), AdamW under warmup_cosine(3e-3, warmup 2, total 6),
-# at TRAIN_LAYERS of the 30 layers (a 0.42 GB state; at 30, 1.35 GB, whose
+# at TRAIN_LAYERS of the 30 layers (a 0.35 GB state; at 30, 1.35 GB, whose
 # restore through the general load path took 111-131 s of the script's
-# 1,000 s aim, which adafactor_mesh needed)
+# 1,000 s aim: 4 layers made room for adafactor_mesh, 2 for tp_train's
+# recurrentgemma and whisper legs)
 TRAIN_B, TRAIN_S = 4, 2048
-TRAIN_LAYERS = 4
+TRAIN_LAYERS = 2
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 2, 5
 TRAIN_LR, TRAIN_WARMUP = 3e-3, 2
 # |vjp grad - plain grad| <= VJP_ATOL + VJP_RTOL * |plain grad|: the
@@ -331,14 +347,15 @@ FEM_TIMES = 3
 # run A's state after this step is the reference for that step
 SWEEP_ARRAYS = ("params/embed", "params/final_norm")
 SWEEP_CHECK_A = 2
-# the elastic phase: smollm-135m at full width with its depth cut to 2
-# layers (35.4 M parameters, 28.3 M of them the embedding), B 4, S 256,
+# the elastic phase: smollm-135m at full width with its depth cut to 1
+# layer (31.9 M parameters, 28.3 M of them the embedding; 2 layers until
+# tp_train's recurrentgemma and whisper legs needed the time), B 4, S 256,
 # AdamW under warmup_cosine(3e-3, warmup 2, total 4), a save every 2 steps.
 # The meshes of its three legs, the store ops rank 0's writer completes
 # before the fault store kills it, and how long a collective waits for a
 # peer (rank 0 alone runs a restore's engine, tens of seconds, while the
 # others wait)
-ELASTIC_LAYERS, ELASTIC_B, ELASTIC_S, ELASTIC_STEPS = 2, 4, 256, 4
+ELASTIC_LAYERS, ELASTIC_B, ELASTIC_S, ELASTIC_STEPS = 1, 4, 256, 4
 ELASTIC_MESH_N, ELASTIC_MESH_CARD, ELASTIC_MESH_M = (2, 2), (1, 1), (1, 2)
 ELASTIC_KILL_AFTER_OPS = 4
 ELASTIC_PG_TIMEOUT = 900
@@ -349,6 +366,10 @@ ELASTIC_PG_TIMEOUT = 900
 # checked against the dense oracle at capacity factor E on MOE_LAYER_B x
 # MOE_LAYER_S tokens (the oracle's one-hot dispatch is [B, S, E, C])
 MOE_B, MOE_P, MOE_G = 4, 512, 32
+# granite served at MOE_SERVE_LAYERS of its 32 layers (its
+# cache's 4 -> 1 restore took 32-35 s of the script at 32 on one H100; tp_train's
+# recurrentgemma and whisper legs needed the time)
+MOE_SERVE_LAYERS = 8
 MOE_STATE_DECODE = 8
 MOE_LAYER_B, MOE_LAYER_S = 4, 128
 # |EP - dense oracle| <= MOE_RTOL * max |dense| for that layer in bf16: the
@@ -389,6 +410,9 @@ VLM_STATE_B, VLM_STATE_P, VLM_STATE_LEN, VLM_STATE_DECODE = 2, 512, 520, 8
 # (an initial 2e-2 did not hold), so the limit is 2x that; the same step
 # for the same weights in f32 is held within XLSTM_F32_RTOL
 XLSTM_B, XLSTM_P, XLSTM_G = 4, 512, 32
+# served (and its state restarted) at XLSTM_SERVE_LAYERS of its 24 layers
+# (four mLSTM/sLSTM pairs; tp_train's new legs needed the time)
+XLSTM_SERVE_LAYERS = 8
 XLSTM_RTOL = 0.08
 XLSTM_F32_RTOL = 1e-4
 # its O(1) serving state after a B 2, prompt-512 prefill (101 MB, 12 mLSTM
@@ -416,6 +440,10 @@ XLSTM_TRAIN_LAYERS = 2
 # two paths round at other places over 6 decoder layers; the hybrid's
 # 0.05), and in f32 for the same weights within WHISPER_F32_RTOL
 WHISPER_B, WHISPER_P, WHISPER_G = 4, 32, 32
+# served (and its cache restarted) at WHISPER_SERVE_LAYERS encoder and
+# decoder layers of its 6 + 6 (the cache's 4 -> 1 restore took
+# 17 s at 6 + 6 on one H100; tp_train's whisper leg serves all 6 + 6)
+WHISPER_SERVE_LAYERS = 2
 WHISPER_RTOL = 0.05
 WHISPER_F32_RTOL = 1e-4
 # its serving cache (k, v at P + G slots, the cross K/V at 1,500 frames,
@@ -469,14 +497,41 @@ SERVE_MESH_N, SERVE_MESH_CARD = (2, 2), (1, 1)
 SERVE_MESH_CARD_G = 8
 SERVE_MESH_TIMEOUT = 600
 # tensor-parallel training on a mesh of processes that share the card:
-# smollm-135m at full width, 2 of its 30 layers, B 4, S 2048, bf16, remat,
+# smollm-135m at full width, 1 of its 30 layers (2 until the
+# recurrentgemma and whisper legs below needed the time), B 4, S 2048,
+# bf16, remat,
 # deterministic mode, on a (1, 3) mesh (each process holds one kv head and
 # its 3 query heads, 512 of the MLP's 1,536 columns and 16,384 of the
 # vocab); TP_STEPS steps, held to the one-process card steps from the same
 # seed within tests/test_torch_mesh_train.py's bf16 tolerances
 # (tests/helpers/torch_tp_workers.py's CARD_RTOL)
-TP_MESH, TP_LAYERS, TP_B, TP_S, TP_STEPS = (1, 3), 2, 4, 2048, 3
+TP_MESH, TP_LAYERS, TP_B, TP_S, TP_STEPS = (1, 3), 1, 4, 2048, 3
 TP_TIMEOUT = 600
+# the same phase's legs for the recurrent hybrid and the encoder-decoder,
+# on a (1, 4) mesh (16 heads and an RG-LRU width of 4,096 do not split 3
+# ways): recurrentgemma-9b at full width, 3 of its 38 layers (one (lru,
+# lru, local) group), each process with 4 of the 16 query heads (one kv
+# head, whole), 1,024 of the 4,096 RG-LRU channels (its scan runs on
+# [B, S, 1,024]), a quarter of the MLP and 64,000 vocab rows; B 1, S 512
+# (the model axis's bytes, counted on meta by launch/dryrun.py::count_step:
+# 196 MB a step per process, some 0.6 s at gloo's measured rate); and
+# whisper-base at full size (6 + 6 layers), B 4, S 448 over 1,500 frames,
+# each process with 2 of the 8 heads and kv heads and a quarter of the
+# MLP (464 MB a step).  The legs share one spawn.  Each: TP_STEPS steps
+# in f32 held to the one-process f32 steps within CARD_RTOL_F32 (in bf16
+# the two runs' roundings alone reach CARD_RTOL's limits at full width),
+# repeated bit-equal; a bf16 prefill of its P tokens (inside the hybrid's
+# 2,048 window) and TP_FAMILY_G decode steps on local heads and channels,
+# within the model's LOGITS_RTOL of one process's with the same greedy
+# tokens; the smoke config's sharded state restored 4 -> 1 (the full
+# state's general load would take minutes)
+TP_FAMILY_MESH, TP_FAMILY_G = (1, 4), 8
+TP_FAMILY = {"recurrentgemma_9b": {"layers": 3, "B": 1, "S": 512, "P": 512},
+             "whisper_base": {"layers": 6, "B": 4, "S": 448, "P": 32}}
+# the TP decode's logits against one process's: the limits this script
+# holds these models' bf16 logits to already (decode against prefill)
+LOGITS_RTOL.update({"recurrentgemma-9b": CONSISTENCY_RTOL,
+                    "whisper-base": WHISPER_RTOL})
 # Adafactor on a sharded mesh: kimi_train's model (kimi-k2 at full width,
 # 1 layer, KIMI_TRAIN_EXPERTS experts top-8, EP, bf16, remat) on a (1, 4)
 # mesh of processes that share the card over gloo (each with 16 query and
@@ -504,6 +559,18 @@ def tp_heads(cfg) -> tuple[int, int, int]:
     query and 3 kv heads over the model axis of TP_MESH."""
     m = TP_MESH[1]
     return cfg.num_heads // m, cfg.num_kv_heads // m, cfg.head_dim_
+
+
+def tp_scan_shape() -> tuple[int, int, int]:
+    """[B, S, W / m] of one ``tp_train`` recurrentgemma process's scans:
+    its step's and its prefill's (S and P are equal), on its share of the
+    RG-LRU width over the model axis of TP_FAMILY_MESH."""
+    from repro_torch.configs import get_config
+
+    leg = TP_FAMILY["recurrentgemma_9b"]
+    assert leg["S"] == leg["P"]
+    return (leg["B"], leg["S"],
+            get_config("recurrentgemma_9b").lru_width // TP_FAMILY_MESH[1])
 
 
 def ada_heads() -> tuple[int, int, int]:
@@ -1083,6 +1150,9 @@ def check_rglru_scan(W: int) -> dict:
         (2, 64, W, True, test_gates, False),          # S = one chunk
         (2, 65, W, True, test_gates, False),          # S = one chunk + 1
         (1, 4096, W, True, test_gates, False),        # 64 chunks, look-back
+        # one tp_train process's channels: its train step and its prefill
+        (*tp_scan_shape(), True, model_gates, False),
+        (*tp_scan_shape(), True, test_gates, False),
         (2, 130, 100, True, test_gates, False),       # W % 64 != 0 (TMA)
         (2, 200, 65, True, test_gates, False),        # W % 4 != 0 (cp.async)
         (3, 200, W, False, model_gates, False),       # h0 = None, 4 chunks
@@ -1201,7 +1271,10 @@ def check_rglru_scan_vjp(W: int) -> dict:
         return int((err > SCAN_ATOL + SCAN_RTOL * want.abs()).sum()) \
             + int((~torch.isfinite(got)).sum()), float(err.max())
 
-    shapes = ((HYBRID_TRAIN_B, HYBRID_TRAIN_S, W, True), (2, 300, 1000, False))
+    # the hybrid train path's shape, a ragged one, and one tp_train
+    # process's channels
+    shapes = ((HYBRID_TRAIN_B, HYBRID_TRAIN_S, W, True), (2, 300, 1000, False),
+              (*tp_scan_shape(), True))
     inputs_of = {shape: inputs(*shape) for shape in shapes}
     was = torch.are_deterministic_algorithms_enabled()
     cases, reverse_cases, worst, repeats = [], [], 0.0, {}
@@ -2366,8 +2439,9 @@ def moe_paths(device, store_dir: str) -> dict:
     from repro_torch.models.api import build_model
 
     # as the serving launcher does: prefill attention through the kernel
-    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"),
-                              attention_impl="pallas")
+    full = get_config("granite_moe_3b_a800m")
+    cfg = dataclasses.replace(full, attention_impl="pallas",
+                              num_layers=MOE_SERVE_LAYERS)
     api = build_model(cfg)
     zero, read, launches = _counter()
 
@@ -2392,6 +2466,7 @@ def moe_paths(device, store_dir: str) -> dict:
                                  f"prefill and {MOE_G} decode steps of "
                                  f"{cfg.num_layers} layers")
         serve["init_seconds"] = t_init
+        serve["layers_cut_from"] = full.num_layers
         serve.update(check_moe_serve(api, params, tokens, kept, device))
         serve["phase_seconds"] = time.perf_counter() - t0
         emit(serve)
@@ -2414,7 +2489,7 @@ def moe_paths(device, store_dir: str) -> dict:
     zero()
     moe.calls = 0
     train = phase_moe_train(tcfg, device)
-    train["layers_cut_from"] = cfg.num_layers
+    train["layers_cut_from"] = full.num_layers
     train["kernel_launches"] = read()
     train["moe_ffn_ep_calls"] = moe.calls
     # a remat span runs its layers again in the backward pass
@@ -2875,7 +2950,8 @@ def recurrent_paths(device, store_dirs) -> dict:
     torch.cuda.empty_cache()
 
     # ---- xlstm_serve: counts at 0 just before, read just after
-    cfg = get_config("xlstm_350m")
+    full = get_config("xlstm_350m")
+    cfg = dataclasses.replace(full, num_layers=XLSTM_SERVE_LAYERS)
     api = build_model(cfg)
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -2955,7 +3031,7 @@ def recurrent_paths(device, store_dirs) -> dict:
         XLSTM_TRAIN_B, XLSTM_TRAIN_S, XLSTM_TRAIN_STEPS,
         XLSTM_REPEAT_STEPS, device)}
     train["kernel_launches"] = read()
-    train["layers_cut_from"] = cfg.num_layers
+    train["layers_cut_from"] = full.num_layers
     torch.cuda.empty_cache()
     # A, B and C count each run's launches themselves (ckpt_pack on every
     # save)
@@ -2966,7 +3042,7 @@ def recurrent_paths(device, store_dirs) -> dict:
                                          store_dirs[1:], device)
     for k, n in train["resume"]["total_launches"].items():
         launches[k] += n
-    train["resume"]["layers_cut_from"] = cfg.num_layers
+    train["resume"]["layers_cut_from"] = full.num_layers
     train["resume"]["phase_seconds"] = time.perf_counter() - t1
     train["phase_seconds"] = time.perf_counter() - t0
     emit(train)
@@ -3089,10 +3165,13 @@ def whisper_paths(device, store_dirs) -> dict:
     cfg = dataclasses.replace(get_config("whisper_base"),
                               attention_impl="pallas")
     api = build_model(cfg)
+    sapi = build_model(dataclasses.replace(
+        cfg, num_layers=WHISPER_SERVE_LAYERS,
+        encoder_layers=WHISPER_SERVE_LAYERS))
     with torch.inference_mode():
         # ---- whisper_serve: counts at 0 just before, read just after
         t0 = time.perf_counter()
-        params = api.init(torch.Generator(device=device).manual_seed(SEED))
+        params = sapi.init(torch.Generator(device=device).manual_seed(SEED))
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
         batch = prompt_batch(cfg, WHISPER_B, WHISPER_P, device)
@@ -3103,21 +3182,23 @@ def whisper_paths(device, store_dirs) -> dict:
                 step_logits[i] = logits[0].float().clone()
 
         zero()
-        serve, kept = phase_serve_batch("whisper_serve", api, params, batch,
-                                        WHISPER_G, device, on_step=on_step)
+        serve, kept = phase_serve_batch("whisper_serve", sapi, params,
+                                        batch, WHISPER_G, device,
+                                        on_step=on_step)
         serve["kernel_launches"] = read()
         kept["step_logits"] = step_logits
         serve.update({"init_seconds": t_init,
-                      "encoder_layers": cfg.encoder_layers,
+                      "encoder_layers": sapi.cfg.encoder_layers,
+                      "layers_cut_from": cfg.num_layers,
                       "enc_frames": list(batch["enc_frames"].shape)})
-        serve.update(check_repeated_prefill(api, params, batch, kept,
+        serve.update(check_repeated_prefill(sapi, params, batch, kept,
                                             WHISPER_P + WHISPER_G))
         serve["decode_vs_prefill"] = decode_vs_prefill(
-            api, params, batch["tokens"], kept, WHISPER_RTOL,
+            sapi, params, batch["tokens"], kept, WHISPER_RTOL,
             extra={"enc_frames": batch["enc_frames"][:1]})
         serve["decode_vs_prefill_f32"] = f32_decode_reading(
-            api, params, batch, WHISPER_F32_RTOL)
-        serve["bos_primed"] = whisper_bos_primed(api, params,
+            sapi, params, batch, WHISPER_F32_RTOL)
+        serve["bos_primed"] = whisper_bos_primed(sapi, params,
                                                  batch["enc_frames"])
         serve["phase_seconds"] = time.perf_counter() - t0
         emit(serve)
@@ -3129,7 +3210,7 @@ def whisper_paths(device, store_dirs) -> dict:
         t0 = time.perf_counter()
         zero()
         state = {"phase": "whisper_state", **restart_cache(
-            api, params, kept, store_dirs[0], WHISPER_P,
+            sapi, params, kept, store_dirs[0], WHISPER_P,
             WHISPER_STATE_DECODE, device)}
         state["kernel_launches"] = read()
         state["cross_kv_bytes"] = sum(kept["cache"][k].numel() * 2
@@ -3512,8 +3593,11 @@ def tp_train_path(device, scratch: Path) -> dict:
     B bit-equal); then this process restores A's state 3 -> 1 on the card,
     every process's shards bit-equal, and runs the one-process steps from
     the same seed, which A's metrics, slots and updates must match within
-    CARD_RTOL.  Returns the launches of the TP run (summed over its
-    processes) and of the restore."""
+    CARD_RTOL.  Then the legs of TP_FAMILY on TP_FAMILY_MESH
+    (``helpers.torch_tp_family_workers.family_legs``: recurrentgemma-9b and
+    whisper-base served, trained and restarted with their compute split
+    over the model axis), each on a line of its own.  Returns the launches
+    of the TP runs (summed over their processes) and of the restores."""
     from repro_torch.core.store import DatasetStore
     from repro_torch.core.tensor_ckpt import TensorCheckpoint
     from repro_torch.core.torch_io import load_torch
@@ -3523,9 +3607,12 @@ def tp_train_path(device, scratch: Path) -> dict:
 
     if str(ROOT / "tests") not in sys.path:
         sys.path.insert(0, str(ROOT / "tests"))
+    from helpers.torch_tp_family_workers import family_legs
     from helpers.torch_tp_workers import (card_config, card_errors,
                                           card_one_process, card_tp_train,
                                           load_kept)
+
+    from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
     store = tempfile.mkdtemp(prefix="tp_store_", dir=scratch)
@@ -3591,6 +3678,7 @@ def tp_train_path(device, scratch: Path) -> dict:
         shutil.rmtree(store, ignore_errors=True)
         shutil.rmtree(kept_dir, ignore_errors=True)
     launches["ckpt_pack"] += restore_launches["ckpt_pack"]
+    launches.setdefault("rglru_scan", 0)
     emit({"phase": "tp_train", "arch": cfg.arch, "layers": TP_LAYERS,
           "batch": TP_B, "seq": TP_S, "mesh": list(TP_MESH),
           "processes": n, "backend": "gloo", "deterministic": True,
@@ -3614,6 +3702,22 @@ def tp_train_path(device, scratch: Path) -> dict:
           "restore_seconds": restore_s, "spawn_seconds": spawn_s,
           "one_process_seconds": one_s,
           "phase_seconds": time.perf_counter() - t_phase})
+    del kept, one, restored
+    torch.cuda.empty_cache()
+    # ---- the recurrent hybrid's and the encoder-decoder's legs, one
+    # spawn of TP_FAMILY_MESH's processes for both
+    records, got, failed = family_legs(
+        TP_FAMILY_MESH, TP_FAMILY, TP_STEPS, SEED, TRAIN_LR, TP_FAMILY_G,
+        str(scratch), {a: LOGITS_RTOL[get_config(a).arch] for a in TP_FAMILY},
+        TP_TIMEOUT)
+    for k, v in got.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    for record in records:
+        emit({"phase": "tp_train", **record,
+              "phase_seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError(f"tp_train's family legs: {failed}")
     return launches
 
 

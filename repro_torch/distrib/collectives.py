@@ -11,7 +11,9 @@ process receives the group's copies of its chunk, adds them in f32 in rank
 order and casts the sum back, and the summed chunks are gathered.  Every
 process of the group gets the same bits, on every run, whatever the
 backend's own reduction order, and sends ``2 (n - 1) / n`` of the tensor,
-as a ring all-reduce does.  A max (:func:`all_max`) gathers the parts.
+as a ring all-reduce does; :func:`sum_scatter` stops after the
+reduce-scatter, each process keeping its slice of the sum along a dim.  A
+max (:func:`all_max`) gathers the parts.
 
 :data:`traffic` counts the bytes that leave each process, per group (its
 ranks) and kind (``"activation"``, or ``"parameter"`` where the sharded
@@ -159,6 +161,25 @@ def all_sum(t: torch.Tensor, group, kind: str = "activation") -> torch.Tensor:
         acc = acc + mine[r].to(F32)
     out = torch.cat(gather_parts(acc.to(t.dtype), group, kind))
     return out[:t.numel()].reshape(t.shape)
+
+
+def sum_scatter(t: torch.Tensor, group, dim: int,
+                kind: str = "activation") -> torch.Tensor:
+    """This process's slice along ``dim`` of the group's ``t`` summed: the
+    first half of :func:`all_sum` with the chunks cut along ``dim`` (each
+    process receives the group's copies of its slice and adds them in f32
+    in rank order), so its bits are those of ``all_sum`` sliced, for half
+    the bytes.  ``t``'s size along ``dim`` must divide by the group's."""
+    if group is None:
+        return t
+    n = group_size(group)
+    rows = t.movedim(dim, 0)
+    part = (rows.shape[0] // n, *rows.shape[1:])
+    mine = exchange_parts(rows.reshape(n, -1), group, kind)
+    acc = mine[0].to(F32)
+    for r in range(1, n):
+        acc = acc + mine[r].to(F32)
+    return acc.to(t.dtype).reshape(part).movedim(0, dim).contiguous()
 
 
 def all_max(t: torch.Tensor, group) -> torch.Tensor:

@@ -23,6 +23,12 @@ each boundary needs its own backward (the Megatron-LM pairs):
 * :func:`split_to_group` (split-in): forward this process's slice,
   backward the gather of the cotangents.  A value held whole enters work
   split along that dim.
+* :func:`sum_scatter_to_group` (reduce-scatter): forward this process's
+  slice of the sum over the group, backward the gather of the cotangents.
+  Per-process partial results of which each process needs only its part
+  (the RG-LRU gates' row-split products, whose scan runs on this
+  process's channels) are summed for half the bytes of a reduce-out and
+  a split-in.
 
 Every sum runs in f32 in rank order (``collectives.all_sum``), so a step
 repeats bit for bit and every process of the group gets the same bits.  A
@@ -34,7 +40,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distrib.collectives import (all_sum, gather_along,
-                                             group_rank, group_size)
+                                             group_rank, group_size,
+                                             sum_scatter)
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -86,6 +93,17 @@ class _SplitToGroup(torch.autograd.Function):
         return gather_along(g, ctx.group, ctx.dim), None, None
 
 
+class _SumScatterToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return sum_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_along(g, ctx.group, ctx.dim), None, None
+
+
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _CopyToGroup.apply(x, group)
 
@@ -101,3 +119,8 @@ def gather_from_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 def split_to_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """``x``'s size along ``dim`` must divide by the group's."""
     return x if group is None else _SplitToGroup.apply(x, group, dim)
+
+
+def sum_scatter_to_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x``'s size along ``dim`` must divide by the group's."""
+    return x if group is None else _SumScatterToGroup.apply(x, group, dim)

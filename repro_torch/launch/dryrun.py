@@ -22,16 +22,19 @@ with one summary line on stdout:
   traffic; views and allocations move nothing), over the port's own
   one-device step on ``meta`` tensors at the per-device batch (the global
   batch over the batch axes' extent), with the config's remat and the
-  shape's step knobs, as one process of the model axis runs it.  A
-  transformer-family train or prefill cell splits its compute over the
+  shape's step knobs, as one process of the model axis runs it.  A cell
+  of a family with tensor-parallel compute (``api.split_params``: the
+  transformer, RG-LRU and whisper families) splits its compute over the
   model axis as the sharded steps do (``"compute": "split over model"``):
   the parameters it takes as this process's part (``api.split_params``)
   are cut to it, a decode step holds its box of the ``kv_seq``-split
   cache, and its model-axis collectives run on a counting
   backend (``collectives.using``) that moves nothing and counts the bytes
   this process would send (``comm_bytes_model``: activations, and the
-  parameters the step gathers over the model axis).  Every other cell
-  (the other families) repeats the compute over the model axis
+  parameters the step gathers over the model axis).  A cell whose rule
+  table puts the batch on the model axis (``configs/perf.py``) runs this
+  process's rows there (``"compute": "batch over model"``).  Every other
+  cell (xLSTM's) repeats the compute over the model axis
   (``"compute": "repeated over model"``), but for an expert-parallel MoE
   layer, which runs this process's experts only (its collectives move no
   bytes of the count: they are communication).  The ``rglru_scan``
@@ -370,7 +373,9 @@ def count_step(cfg, shape: ShapeConfig, rules, sizes: dict, knobs: dict,
            "bytes": float(traffic.bytes),
            "experts_per_process": (cfg.moe.num_experts_padded // ep
                                    if cfg.moe is not None else None),
-           "compute": "split over model" if split else "repeated over model"}
+           "compute": ("split over model" if split
+                       else "batch over model" if "model" in rules.batch_axes
+                       else "repeated over model")}
     if split:
         # the step gathers each parameter the rule splits over the model
         # axis that its op takes whole: this process sends its part to

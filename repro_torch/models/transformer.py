@@ -237,17 +237,25 @@ def _qkv(cfg: ModelConfig, x, lp, sin, cos, *, s: _Split = NO_SPLIT):
 
 def _attention_heads(cfg: ModelConfig, s: _Split, q, k, v):
     """q, k, v on the attention's heads (``s.attn``): split on kv heads as
-    their hints left them; or q gathered and each kv head's group split;
-    or every head whole."""
+    their hints left them; or each kv head's group of query heads split
+    (q gathered first, but under one kv head, whose group's part is the
+    heads q's hint gave this process) beside k and v whole, whose
+    gradients then sum the groups' parts; or every head whole."""
     B, S = q.shape[:2]
     Hq, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     G = Hq // KV
-    if s.attn != "kv":
-        q = _whole(q, s.group, 2, Hq)
-    q = shard_hint(q.reshape(B, S, -1, G, hd), _QB_AXES,
-                   (B, S, KV, G, hd)).reshape(B, S, -1, hd)
-    k = shard_hint(k, _KB_AXES, (B, S, KV, hd))
-    v = shard_hint(v, _KB_AXES, (B, S, KV, hd))
+    if s.attn == "group" and KV == 1:
+        q = q.reshape(B, S, 1, -1, hd)
+    else:
+        if s.attn != "kv":
+            q = _whole(q, s.group, 2, Hq)
+        q = q.reshape(B, S, -1, G, hd)
+    q = shard_hint(q, _QB_AXES, (B, S, KV, G, hd)).reshape(B, S, -1, hd)
+    Sk = k.shape[1]
+    k = shard_hint(k, _KB_AXES, (B, Sk, KV, hd))
+    v = shard_hint(v, _KB_AXES, (B, Sk, KV, hd))
+    if s.attn == "group":
+        k, v = copy_to_group(k, s.group), copy_to_group(v, s.group)
     return q, k, v
 
 
@@ -257,7 +265,7 @@ def _attention_out(cfg: ModelConfig, s: _Split, out):
     split as they are, else whole."""
     B, S = out.shape[:2]
     Hq, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    if s.attn == "group":
+    if s.attn == "group" and KV > 1:
         out = gather_from_group(out.reshape(B, S, KV, -1, hd), s.group, 3)
     out = shard_hint(out.reshape(B, S, -1), ("batch", None, "heads"),
                      (B, S, Hq * hd))

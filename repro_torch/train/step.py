@@ -25,7 +25,8 @@ summed over the mesh groups that split those dims (``update(...,
 splits=)``).
 
 Over the model axis, a family with tensor-parallel compute (the
-transformer's ``api.split_params``) splits its compute as the
+transformer's, the RG-LRU hybrid's and whisper's ``api.split_params``)
+splits its compute as the
 reference's activation hints place it (``distrib/context.py``): the
 parameters it names stay split over ``model`` (this process's heads, MLP
 columns or rows, vocab rows), and each process computes on them; a
@@ -36,7 +37,7 @@ over ``model`` for the step (counted as ``"parameter"`` bytes by
 gradient of such a parameter is this process's part on ``model`` already,
 so it is sliced on the other axes only, and ``grad_norm`` sums its squares
 over the model axis.  Every other family gathers every parameter whole and
-repeats the compute over the model axis.  The reference leaves the
+repeats the compute over the model axis (xLSTM).  The reference leaves the
 compute's partitioning to GSPMD; only the state's layout is part of its
 contract (and of the checkpoint).
 
@@ -48,12 +49,12 @@ its compute over the model axis as the train step does (or repeats it, for
 the other families) and keeps each process's box of the cache; the
 sharded decode computes on each process's cache shard and exchanges only
 per-token results (the sequence-parallel ``decode_attention``'s
-log-sum-exp combine, the width-split RG-LRU step's and the
-cross-attention heads' gathers).  A tensor-parallel family's decode
-splits its products over the model axis as its prefill does (this
-process's heads, MLP part and vocab rows, the one token's q, k and v
-gathered for the attention); the other families take every parameter
-whole.
+log-sum-exp combine).  A tensor-parallel family's decode splits its
+products over the model axis as its prefill does (this process's heads,
+MLP part and vocab rows, the one token's q, k and v gathered for the
+attention; the RG-LRU step on this process's channels of its states;
+whisper's cross-attention on its kv heads of the cross K/V); the other
+families take every parameter whole.
 """
 
 from __future__ import annotations
@@ -519,13 +520,22 @@ def make_prefill_step(api: TorchModelApi, shape: ShapeConfig,
 
     def own_box(name, t):
         """This process's box of cache entry ``t``, computed for its rows
-        (whole in every other dim)."""
+        and, in every other dim, whole or (the prefill of a family that
+        splits its compute over the model axis: whisper's cross K/V on
+        this process's kv heads, the RG-LRU states on its channels)
+        already this process's part of a dim the cache splits."""
         shape_, bdim = c_specs[name].shape, _batch_dim(axes[name])
         box = local_box(shape_, mesh, c_sh[name])
         if bdim is not None and t.shape[bdim] != box.shape[bdim]:
             raise ValueError(f"{name}: {t.shape[bdim]} rows prefilled, the "
                              f"cache's box holds {box.shape[bdim]}")
-        own = tuple(slice(None) if d == bdim else slice(a, b)
+        for d, (n, whole, part) in enumerate(zip(t.shape, shape_,
+                                                 box.shape)):
+            if d != bdim and n not in (whole, part):
+                raise ValueError(f"{name}: dim {d} of {n}, neither the "
+                                 f"cache's {whole} nor its box's {part}")
+        own = tuple(slice(None) if d == bdim or t.shape[d] != shape_[d]
+                    else slice(a, b)
                     for d, (a, b) in enumerate(zip(box.start, box.stop)))
         return from_local(t[own].contiguous(), mesh, c_sh[name], shape_)
 

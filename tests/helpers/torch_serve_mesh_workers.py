@@ -42,10 +42,13 @@ from repro_torch.train.step import make_decode_step, make_prefill_step
 FAMILIES = ("smollm_135m", "granite_moe_3b_a800m", "recurrentgemma_9b",
             "xlstm_350m", "whisper_base")
 MESHES = ((2, 2), (1, 4), (4, 1))
-#: the transformer family, whose decode computes on this process's heads,
-#: MLP part (or experts) and vocab rows where the model axis splits
+#: the families whose decode computes on this process's heads, MLP part
+#: (or experts) and vocab rows where the model axis splits: the
+#: transformer family, recurrentgemma (its recurrent states' channels too)
+#: and whisper (the cross K/V's kv heads too)
 LOCAL_ARCHS = ("smollm_135m", "qwen3_1_7b", "gemma2_2b", "qwen3_4b",
-               "qwen2_vl_7b", "granite_moe_3b_a800m", "kimi_k2_1t_a32b")
+               "qwen2_vl_7b", "granite_moe_3b_a800m", "kimi_k2_1t_a32b",
+               "recurrentgemma_9b", "whisper_base")
 LOCAL_MESHES = ((2, 2), (1, 4))
 # batch, prompt and decode steps: the cache of P + G = 12 positions splits
 # over a model axis of 2 and of 4; recurrentgemma's ring of 8 slots wraps
@@ -254,6 +257,16 @@ def serve_families(inits: dict, store_dir: str) -> dict:
             torch.Generator().manual_seed(0)), {}
         _serve("smollm_135m", wide, mesh, P + G, G, cfg=cfg, traffic=traffic)
         out[shape]["wide"] = traffic["steps"]
+        # recurrentgemma at twice its RG-LRU width: what the width adds to
+        # a decode step's bytes
+        cfg = dataclasses.replace(serve_config("recurrentgemma_9b"),
+                                  lru_width=2 * serve_config(
+                                      "recurrentgemma_9b").lru_width)
+        wide, traffic = build_model(cfg).init(
+            torch.Generator().manual_seed(0)), {}
+        _serve("recurrentgemma_9b", wide, mesh, P + G, G, cfg=cfg,
+               traffic=traffic)
+        out[shape]["wide_lru"] = traffic["steps"]
     return out
 
 

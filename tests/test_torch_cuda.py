@@ -977,3 +977,46 @@ def test_adafactor_mesh_on_processes_that_share_the_card(cuda, tmp_path,
             got = restored[k][r["boxes"][k]].cpu()
             assert torch.equal(got.reshape(-1).view(torch.uint8),
                                t.reshape(-1).view(torch.uint8)), k
+
+
+def test_tp_families_on_processes_that_share_the_card(cuda, tmp_path,
+                                                      monkeypatch):
+    """recurrentgemma-9b at full width and 3 layers (each process's RG-LRU
+    block on 2,048 of the 4,096 channels, its scan on the card at that
+    width), B 1, S 128, and whisper-base at full width and 1 + 1 layers,
+    B 2, S 64, on a (1, 2) mesh of 2 processes that share the card (gloo,
+    one spawn for both), their compute split over the model axis
+    (``chip_smoke.py``'s ``tp_train`` legs at a smaller size): a bf16
+    prefill and 4 decode steps on local heads and channels within 0.05 of
+    one process's logits and the same greedy tokens; 2 f32 TP steps within
+    tests/test_torch_mesh_train.py's f32 tolerances of the one-process card
+    steps and again bit-equal; the scan launched by each process (a
+    prefill once per RG-LRU layer, a step three times); no parameter bytes
+    over the model axis; each smoke config's sharded state restored on one
+    process bit-equal to every process's shards."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from helpers.torch_tp_family_workers import family_legs
+
+    legs = {"recurrentgemma_9b": {"layers": 3, "B": 1, "S": 128, "P": 128},
+            "whisper_base": {"layers": 1, "B": 2, "S": 64, "P": 16}}
+    m, steps = 2, 2
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    try:
+        records, launches, failed = family_legs(
+            (1, m), legs, steps, 0, 3e-3, 4, str(tmp_path),
+            {a: 0.05 for a in legs}, timeout=300)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert failed == [], failed
+    assert launches["ckpt_pack"] > 0
+    # per process: a prefill once per RG-LRU layer (2 of the 3), each step
+    # three times a layer (forward, remat's recompute, reverse)
+    n_lru = 2
+    assert launches["rglru_scan"] == m * (n_lru + 3 * n_lru * steps)
+    rg = records[0]
+    assert rg["local_shapes"]["params/lru/w_a"] == [2, 2048, 4096]
+    assert rg["cache_local_shapes"]["h"] == [2, 1, 2048]

@@ -172,6 +172,55 @@ def test_counted_flops_of_a_train_step_are_sane():
     assert long_["flops"] > short["flops"] and long_["bytes"] > short["bytes"]
 
 
+#: whisper's parameters stored split over a 16-wide model axis (their
+#: 512 columns divide 16) whose activation's 8 heads do not: each step
+#: gathers them
+_WHISPER_GATHERED_AT_16 = ([f"{p}/{k}" for p in ("enc", "dec")
+                            for k in ("wq", "wk", "wv")]
+                           + ["dec/xq", "dec/xk", "dec/xv"])
+
+
+@pytest.mark.parametrize("arch,name,compute", [
+    ("recurrentgemma_9b", "train_4k", "batch over model"),
+    ("recurrentgemma_9b", "prefill_32k", "split over model"),
+    ("recurrentgemma_9b", "decode_32k", "split over model"),
+    ("whisper_base", "train_4k", "split over model"),
+    ("whisper_base", "prefill_32k", "split over model"),
+    ("whisper_base", "decode_32k", "split over model"),
+    ("xlstm_350m", "train_4k", "repeated over model"),
+])
+def test_cells_split_their_compute_over_model(arch, name, compute):
+    """A cell's step as ``run_cell`` counts it on the production (16, 16)
+    mesh (the cell's config, rule table and knobs), its depth cut (one
+    (lru, lru, local) group, 1 + 1 whisper layers, 2 xlstm layers) and its
+    sequence to 64 (the split follows the rule table and the widths):
+    recurrentgemma's prefill and decode and whisper's three cells split
+    their compute over the model axis.  recurrentgemma's parameters are
+    all this process's part there; whisper's 8 heads stay whole on a
+    16-wide axis, so the step gathers the q, k and v projections (stored
+    split by their 512 columns) and splits ``wo``, ``xo`` and the MLP.
+    recurrentgemma's train cell puts its batch on the model axis
+    (``configs/perf.py``: ``batch`` over data and model), and xlstm's
+    train cell repeats its compute."""
+    shape = dryrun.SHAPES[name]
+    cfg, knobs = dryrun._cfg_for(arch, shape, "single")
+    layers = {"recurrentgemma_9b": 3, "whisper_base": 1, "xlstm_350m": 2}
+    cfg = dataclasses.replace(cfg, num_layers=layers[arch],
+                              encoder_layers=1 if cfg.enc_dec else 0)
+    rules = rules_for(cfg.arch, shape_name=name)
+    sizes = dryrun.MESHES["single"]
+    got = dryrun.count_step(cfg, ShapeConfig(name, 64, 1, shape.kind), rules,
+                            sizes, knobs, 1)
+    assert got["compute"] == compute
+    assert got["flops"] > 0 and got["bytes"] > 0
+    if compute == "split over model":
+        specs, m = build_model(cfg).param_specs, sizes["model"]
+        want = sum(math.prod(specs[n].shape) * 2 // m * (m - 1)
+                   for n in _WHISPER_GATHERED_AT_16) if cfg.enc_dec else 0
+        assert got["comm_bytes_model"]["parameter"] == want
+        assert got["comm_bytes_model"]["activation"] > 0
+
+
 def test_roofline_names_the_h100_peaks_and_the_binding_term(tmp_path):
     """Records of a counted cell and a skipped one: the table states the
     card and its peaks, the skip, and the counted cell's bound as the

@@ -13,12 +13,15 @@ simulated devices.
   their scale and the same greedy tokens as the reference's;
 * a decode step exchanges per-token results only: its bytes do not grow
   with the cache;
-* the transformer family's decode on local heads (smollm, qwen3-1.7b,
-  gemma2, qwen3-4b, qwen2-vl, granite and kimi-k2, EP for the MoE
-  configs) on (2, 2) and (1, 4): logits within 1e-5 of the reference's
-  sharded decode and the same tokens; no parameter whose split matches
-  its activation's is gathered, and the bytes over the model axis do not
-  grow with d_ff; on a (1, 1) mesh, bit for bit the one-device steps;
+* the decode on local heads of the transformer family (smollm,
+  qwen3-1.7b, gemma2, qwen3-4b, qwen2-vl, granite and kimi-k2, EP for the
+  MoE configs), of recurrentgemma (its states on local channels) and of
+  whisper (its cross K/V on local kv heads) on (2, 2) and (1, 4): logits
+  within 1e-5 of the reference's sharded decode and the same tokens; no
+  parameter whose split matches its activation's is gathered, the bytes
+  over the model axis do not grow with d_ff, and recurrentgemma's grow
+  with its RG-LRU width by the gates' reduce-scatter only; on a (1, 1)
+  mesh, bit for bit the one-device steps;
 * smollm's ``kv_seq``-sharded cache saved by 4 processes mid-decode
   restores bit-equal on 1 and on 2 processes, whose decode goes on with
   the uninterrupted run's tokens;
@@ -293,6 +296,27 @@ def test_local_head_decode_bytes_do_not_grow_with_d_ff(runs, shape):
     for r in runs["four"]:
         narrow = r[shape]["smollm_135m"]["traffic"]
         assert narrow == r[shape]["wide"]
+
+
+@pytest.mark.parametrize("shape", W.LOCAL_MESHES)
+def test_rglru_decode_sends_only_the_gates_sums_for_its_width(runs, shape):
+    """recurrentgemma's decode step at twice its RG-LRU width sends the
+    gates' reduce-scatter more, and nothing else: per recurrent layer each
+    process sends each of the other m - 1 processes its channels of its
+    two partial products, [rows, W / m] f32 each.  The states, the conv
+    and the gelu branch never leave their process, and the gates are not
+    all-reduced (which would send twice that)."""
+    m, rows = shape[1], W.B // shape[0]
+    cfg = W.serve_config("recurrentgemma_9b")
+    n_lru = sum(k == "lru" for k in cfg.layer_kinds())
+    extra = n_lru * (m - 1) * 2 * rows * (cfg.lru_width // m) * 4
+    for r in runs["four"]:
+        narrow = r[shape]["recurrentgemma_9b"]["traffic"]
+        wide = r[shape]["wide_lru"]
+        assert len(narrow) == len(wide) == W.G
+        for a, b in zip(narrow, wide):
+            assert b["activation"] - a["activation"] == extra
+            assert a["parameter"] == b["parameter"] == 0
 
 
 @pytest.fixture

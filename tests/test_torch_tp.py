@@ -243,12 +243,19 @@ def test_tp_prefill_matches_reference(runs, shape, arch):
 
 
 # ------------------------------------------------ the model axis's traffic
-#: each model-split parameter's activation: its logical axis and size
+#: each model-split parameter's activation (by its name within its
+#: stack): its logical axis and size; whisper's cross-attention's as its
+#: self-attention's, the RG-LRU block's its width
 _ACTIVATION = {"wq": ("heads", "num_heads"), "wk": ("kv_heads", "num_kv_heads"),
                "wv": ("kv_heads", "num_kv_heads"),
                "wo": ("heads", "num_heads"), "w_gate": ("mlp", "d_ff"),
                "w_up": ("mlp", "d_ff"), "w_down": ("mlp", "d_ff"),
-               "embed": ("vocab", "vocab"), "unembed": ("vocab", "vocab")}
+               "embed": ("vocab", "vocab"), "unembed": ("vocab", "vocab"),
+               "xq": ("heads", "num_heads"), "xk": ("kv_heads", "num_kv_heads"),
+               "xv": ("kv_heads", "num_kv_heads"),
+               "xo": ("heads", "num_heads"),
+               **{k: ("mlp", "lru_width") for k in (
+                   "w_y", "w_x", "conv", "lam", "w_a", "w_i", "w_out")}}
 
 
 def _expected(arch: str, shape) -> tuple[set[str], int]:
@@ -266,9 +273,10 @@ def _expected(arch: str, shape) -> tuple[set[str], int]:
         on_model = [d for d, e in enumerate(pspec) if e == "model"]
         if m == 1 or not on_model or "experts" in spec.axes:
             continue
-        axis, size = _ACTIVATION.get(name, (None, None))
-        n = getattr(cfg, size) * (cfg.head_dim_ if name == "wo" else 1) \
-            if size else 0
+        base = name.rsplit("/", 1)[-1]
+        axis, size = _ACTIVATION.get(base, (None, None))
+        n = getattr(cfg, size) * (cfg.head_dim_ if base in ("wo", "xo")
+                                  else 1) if size else 0
         if (axis is not None and spec.axes[on_model[0]] == axis
                 and n % m == 0):
             aligned.add(name)
