@@ -188,16 +188,21 @@ whisper-base's over 4.
            second run bit-equal; no parameter gathered over the model
            axis (only activation bytes on its group); the TP state saved
            through ckpt_pack and restored 3 -> 1 on the card bit for bit.
-           Then two legs on a (1, 4) mesh, each on a line of its own:
+           Then three legs on a (1, 4) mesh, each on a line of its own:
            recurrentgemma-9b at full width and 3 layers (B 1, S 512;
            each process's RG-LRU block on 1,024 of the 4,096 channels,
-           its rglru_scan launches counted, forward and reverse) and
-           whisper-base at full size (B 4, S 448), one spawn for both:
-           served in bf16 (a prefill and 8 decode steps on local heads and
-           channels, within the model's LOGITS_RTOL of one process's, the
-           same greedy tokens), 3 TP steps in f32 within CARD_RTOL_F32 of
-           the one-process steps, repeated bit-equal, and the smoke
-           config's sharded state restored 4 -> 1 bit for bit.
+           its rglru_scan launches counted, forward and reverse),
+           whisper-base at full width and 2 + 2 of its 6 + 6 layers (B 4,
+           S 448) and xlstm-350m at full width and 2 layers, one
+           mLSTM/sLSTM pair (B 1, S 512; each process with 512 of the
+           mLSTM's 2,048 inner columns, 1,024 of the sLSTM's 4,096 gate
+           columns, 256 of w_out's 1,024 rows and 12,576 vocab rows; both
+           cells run whole on every process), one spawn for the three: served in bf16 (a prefill and 8 decode
+           steps on local heads, channels and columns, within the model's
+           LOGITS_RTOL of one process's, the same greedy tokens), 3 TP
+           steps in f32 within CARD_RTOL_F32 of the one-process steps,
+           repeated bit-equal, and the smoke config's sharded state saved
+           through ckpt_pack and restored 4 -> 1 bit for bit.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; a kernel of a path that never launched fails the run (the fem,
@@ -515,9 +520,10 @@ TP_TIMEOUT = 600
 # [B, S, 1,024]), a quarter of the MLP and 64,000 vocab rows; B 1, S 512
 # (the model axis's bytes, counted on meta by launch/dryrun.py::count_step:
 # 196 MB a step per process, some 0.6 s at gloo's measured rate); and
-# whisper-base at full size (6 + 6 layers), B 4, S 448 over 1,500 frames,
+# whisper-base at full width, 2 + 2 of its 6 + 6 layers since the xLSTM
+# leg needed the time (6 + 6 until then), B 4, S 448 over 1,500 frames,
 # each process with 2 of the 8 heads and kv heads and a quarter of the
-# MLP (464 MB a step).  The legs share one spawn.  Each: TP_STEPS steps
+# MLP.  The legs share one spawn.  Each: TP_STEPS steps
 # in f32 held to the one-process f32 steps within CARD_RTOL_F32 (in bf16
 # the two runs' roundings alone reach CARD_RTOL's limits at full width),
 # repeated bit-equal; a bf16 prefill of its P tokens (inside the hybrid's
@@ -525,13 +531,21 @@ TP_TIMEOUT = 600
 # within the model's LOGITS_RTOL of one process's with the same greedy
 # tokens; the smoke config's sharded state restored 4 -> 1 (the full
 # state's general load would take minutes)
+# xlstm-350m joins them at full width and 2 of 24 layers (one mLSTM/sLSTM
+# pair), B 1, S 512: each process holds 512 of the 2,048 inner columns,
+# 1,024 of the 4,096 gate columns, 256 of w_out's 1,024 rows and 12,576 of
+# the 50,304 vocab rows; q, k, v and the gates are summed whole and each
+# cell (the chunkwise mLSTM, the sLSTM time loop) runs whole on every
+# process, as the rule table keeps the heads and the state whole
 TP_FAMILY_MESH, TP_FAMILY_G = (1, 4), 8
 TP_FAMILY = {"recurrentgemma_9b": {"layers": 3, "B": 1, "S": 512, "P": 512},
-             "whisper_base": {"layers": 6, "B": 4, "S": 448, "P": 32}}
+             "whisper_base": {"layers": 2, "B": 4, "S": 448, "P": 32},
+             "xlstm_350m": {"layers": 2, "B": 1, "S": 512, "P": 512}}
 # the TP decode's logits against one process's: the limits this script
 # holds these models' bf16 logits to already (decode against prefill)
 LOGITS_RTOL.update({"recurrentgemma-9b": CONSISTENCY_RTOL,
-                    "whisper-base": WHISPER_RTOL})
+                    "whisper-base": WHISPER_RTOL,
+                    "xlstm-350m": XLSTM_RTOL})
 # Adafactor on a sharded mesh: kimi_train's model (kimi-k2 at full width,
 # 1 layer, KIMI_TRAIN_EXPERTS experts top-8, EP, bf16, remat) on a (1, 4)
 # mesh of processes that share the card over gloo (each with 16 query and
@@ -3594,9 +3608,10 @@ def tp_train_path(device, scratch: Path) -> dict:
     every process's shards bit-equal, and runs the one-process steps from
     the same seed, which A's metrics, slots and updates must match within
     CARD_RTOL.  Then the legs of TP_FAMILY on TP_FAMILY_MESH
-    (``helpers.torch_tp_family_workers.family_legs``: recurrentgemma-9b and
-    whisper-base served, trained and restarted with their compute split
-    over the model axis), each on a line of its own.  Returns the launches
+    (``helpers.torch_tp_family_workers.family_legs``: recurrentgemma-9b,
+    whisper-base and xlstm-350m served, trained and restarted with their
+    compute split over the model axis), each on a line of its own with the
+    same fields.  Returns the launches
     of the TP runs (summed over their processes) and of the restores."""
     from repro_torch.core.store import DatasetStore
     from repro_torch.core.tensor_ckpt import TensorCheckpoint
@@ -3704,8 +3719,8 @@ def tp_train_path(device, scratch: Path) -> dict:
           "phase_seconds": time.perf_counter() - t_phase})
     del kept, one, restored
     torch.cuda.empty_cache()
-    # ---- the recurrent hybrid's and the encoder-decoder's legs, one
-    # spawn of TP_FAMILY_MESH's processes for both
+    # ---- the recurrent hybrid's, the encoder-decoder's and xLSTM's legs,
+    # one spawn of TP_FAMILY_MESH's processes for the three
     records, got, failed = family_legs(
         TP_FAMILY_MESH, TP_FAMILY, TP_STEPS, SEED, TRAIN_LR, TP_FAMILY_G,
         str(scratch), {a: LOGITS_RTOL[get_config(a).arch] for a in TP_FAMILY},

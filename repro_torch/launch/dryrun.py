@@ -23,8 +23,8 @@ with one summary line on stdout:
   one-device step on ``meta`` tensors at the per-device batch (the global
   batch over the batch axes' extent), with the config's remat and the
   shape's step knobs, as one process of the model axis runs it.  A cell
-  of a family with tensor-parallel compute (``api.split_params``: the
-  transformer, RG-LRU and whisper families) splits its compute over the
+  of a family with tensor-parallel compute (``api.split_params``: every
+  family) splits its compute over the
   model axis as the sharded steps do (``"compute": "split over model"``):
   the parameters it takes as this process's part (``api.split_params``)
   are cut to it, a decode step holds its box of the ``kv_seq``-split
@@ -33,8 +33,8 @@ with one summary line on stdout:
   this process would send (``comm_bytes_model``: activations, and the
   parameters the step gathers over the model axis).  A cell whose rule
   table puts the batch on the model axis (``configs/perf.py``) runs this
-  process's rows there (``"compute": "batch over model"``).  Every other
-  cell (xLSTM's) repeats the compute over the model axis
+  process's rows there (``"compute": "batch over model"``).  A cell on a
+  mesh of one model process repeats nothing and splits nothing
   (``"compute": "repeated over model"``), but for an expert-parallel MoE
   layer, which runs this process's experts only (its collectives move no
   bytes of the count: they are communication).  The ``rglru_scan``

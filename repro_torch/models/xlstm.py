@@ -17,10 +17,26 @@ with a lower-triangular ones matrix (``torch.cumsum`` on a card has no
 deterministic implementation, and the train path runs in PyTorch's
 deterministic mode).  A decode step returns new state tensors, as the
 reference does (the port's other families write their caches in place).
+
+Where the sharded train, prefill or decode step splits the compute over
+the model axis, each activation lies where the reference's ``shard_hint``
+puts it (:class:`_Split`).  The rule table keeps xLSTM's heads whole, so
+the mLSTM block runs its up-projections, its gate and its down-projection
+on this process's columns of the inner width (``mlp``): ``wq``, ``wk``,
+``wv`` and ``w_if`` are stored row-split, so q, k, v and the gates are
+partial sums, summed whole in one exchange, and the chunkwise cell runs
+whole on every process (the state ``m_state`` is whole on the model axis,
+as the table places it).  The sLSTM block computes its gates' pre-
+activations on this process's columns of 4D (one gate of every channel
+where the axis is 4 wide), gathers them once and runs the time loop
+whole; ``w_out``'s rows give a partial sum.  Each block's partial output
+is reduced at the residual's hint, and the embedding and the logits split
+the vocab as the transformer family's do.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -29,13 +45,20 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distrib.context import mesh_context, use_mesh_context
+from repro_torch.distrib.context import (mesh_context, model_axis,
+                                         model_split, shard_hint, split_of,
+                                         use_mesh_context)
+from repro_torch.distrib.tensor_parallel import (copy_to_group,
+                                                 gather_from_group,
+                                                 reduce_from_group,
+                                                 split_to_group)
 from repro_torch.models.api import (
     BatchSpec,
     ParamSpec,
     TorchModelApi,
     token_batch_specs,
 )
+from repro_torch.models import transformer as T
 from repro_torch.models.layers import (
     chunked_softmax_xent,
     rms_norm,
@@ -76,6 +99,72 @@ def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
         "s/b": ParamSpec((n_s, 4 * D), ("layers", "mlp"), dt, init="zeros"),
         "s/w_out": ParamSpec((n_s, D, D), ("layers", "mlp", "embed"), dt),
     }
+
+
+# ------------------------------------------------------ tensor parallelism
+#: each block's parameters the rule table splits on ``mlp``: the mLSTM's
+#: up-projection and gate by column, its q, k, v, gate and down
+#: projections by row; the sLSTM's input product and bias by gate column,
+#: its output product by row
+_M_KEYS = ("w_up", "w_gate", "wq", "wk", "wv", "w_if", "w_down")
+_S_KEYS = ("w", "b", "w_out")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Split(T._Split):
+    """The transformer's split of the vocab (``models/transformer.py::
+    _Split``: the embedding looked up in this process's rows, the logits
+    on its columns), and each block's split over the model axis: ``m``,
+    the mLSTM's inner width (u and its gate on this process's columns;
+    every parameter of ``_M_KEYS`` its part); ``s``, the sLSTM's gate
+    columns (its pre-activations on this process's columns, ``w_out`` on
+    its rows; every parameter of ``_S_KEYS`` its part)."""
+    m: bool = False
+    s: bool = False
+
+
+NO_SPLIT = _Split()
+
+
+def _block_split(specs, prefix: str, keys, width: int) -> bool:
+    """Whether the installed context splits the block's ``mlp`` activation
+    of ``width`` over the model axis; where it does, each of its
+    parameters must be stored split on its ``mlp`` dim (raises, naming
+    the block and the parameter, otherwise)."""
+    if model_split(("batch", None, "mlp"), (1, 1, width)) is None:
+        return False
+    for k in keys:
+        spec = specs[f"{prefix}/{k}"]
+        if model_split(spec.axes, spec.shape) != spec.axes.index("mlp"):
+            raise NotImplementedError(
+                f"the {prefix!r} block's activation of width {width} is "
+                f"split over the model axis but {prefix}/{k} is not stored "
+                f"split on its mlp dim: the block takes no other split")
+    return True
+
+
+def _split(cfg: ModelConfig) -> _Split:
+    """The step's split under the installed context (see ``_Split``)."""
+    ax = model_axis()
+    if ax is None:
+        return NO_SPLIT
+    D, V = cfg.d_model, cfg.vocab
+    specs = param_specs(cfg)
+    vocab = (model_split(("batch", None, "vocab"), (1, 1, V)) is not None
+             and model_split(specs["embed"].axes, specs["embed"].shape) == 0)
+    return _Split(vocab=vocab, m=_block_split(specs, "m", _M_KEYS, 2 * D),
+                  s=_block_split(specs, "s", _S_KEYS, 4 * D), group=ax.group)
+
+
+def split_params(cfg: ModelConfig) -> set[str]:
+    """The parameters the loss, the prefill and the decode step take as
+    this process's part of their model split under the installed context;
+    they take every other parameter whole (the norms, the sLSTM's
+    recurrent matrices)."""
+    s = _split(cfg)
+    names = {f"m/{k}" for k in _M_KEYS} if s.m else set()
+    names |= {f"s/{k}" for k in _S_KEYS} if s.s else set()
+    return names | ({"embed"} if s.vocab else set())
 
 
 # ------------------------------------------------------------------- mLSTM
@@ -130,19 +219,37 @@ def _mlstm_chunk(q, k, v, log_f, log_i, state, norm, chunk: int):
     return y, S_st, n_st
 
 
-def _mlstm_block(x, lp, *, state=None, norm=None, chunk=128, decode=False):
+def _mlstm_block(x, lp, *, state=None, norm=None, chunk=128, decode=False,
+                 s: _Split = NO_SPLIT):
+    """x + the mLSTM of x, and its (state, norm).  Under ``s.m`` u and the
+    gate are this process's columns of the inner width and ``wq``, ``wk``,
+    ``wv``, ``w_if`` its rows: q, k, v and the gates' products are
+    partial sums, summed whole, so the cell runs on every head on every
+    process; its output meets the gate and ``w_down``'s rows on this
+    process's columns, a partial sum that the residual's hint reduces."""
     B, S, D = x.shape
-    h = rms_norm(x, lp["ln"])
-    u = h @ lp["w_up"]
-    gate = F.silu(h @ lp["w_gate"])
-    Di = u.shape[-1]
+    Di = 2 * D
     H = lp["w_if"].shape[-1] // 2
     hd = Di // H
-    q = (u @ lp["wq"]).reshape(B, S, H, hd)
-    k = (u @ lp["wk"]).reshape(B, S, H, hd)
-    v = (u @ lp["wv"]).reshape(B, S, H, hd)
+    h = rms_norm(x, lp["ln"])
+    hs = copy_to_group(h, s.group) if s.m else h
+    u = hs @ lp["w_up"]
+    gate = F.silu(hs @ lp["w_gate"])
+    if s.m:
+        u = shard_hint(u, ("batch", None, "mlp"), (B, S, Di))
+        gate = shard_hint(gate, ("batch", None, "mlp"), (B, S, Di))
+    q, k, v = u @ lp["wq"], u @ lp["wk"], u @ lp["wv"]
     # f32 gate products, as the reference's x.astype(F32) @ w.astype(F32)
-    gif = (u.float() @ lp["w_if"].float()).reshape(B, S, H, 2)
+    gif = u.float() @ lp["w_if"].float()
+    if s.m and q.dtype == F32:
+        q, k, v, gif = reduce_from_group(torch.cat([q, k, v, gif], -1),
+                                         s.group).split((Di,) * 3 + (2 * H,),
+                                                        -1)
+    elif s.m:
+        q, k, v = reduce_from_group(torch.stack([q, k, v]), s.group).unbind(0)
+        gif = reduce_from_group(gif, s.group)
+    q, k, v = (t.reshape(B, S, H, hd) for t in (q, k, v))
+    gif = gif.reshape(B, S, H, 2)
     log_i = -softplus(-gif[..., 0])            # log sigmoid
     log_f = -softplus(-gif[..., 1])
     if state is None:
@@ -150,18 +257,30 @@ def _mlstm_block(x, lp, *, state=None, norm=None, chunk=128, decode=False):
         norm = torch.zeros((B, H, hd), dtype=F32, device=x.device)
     y, S_st, n_st = _mlstm_chunk(q, k, v, log_f, log_i, state, norm,
                                  chunk=1 if decode else chunk)
-    y = y.reshape(B, S, Di).to(x.dtype) * gate
-    return x + y @ lp["w_down"], (S_st, n_st)
+    y = shard_hint(y.reshape(B, S, Di).to(x.dtype),
+                   ("batch", None, "mlp")) * gate
+    return x + shard_hint(y @ lp["w_down"], ("batch", None, None),
+                          (B, S, D), partial=s.m), (S_st, n_st)
 
 
 # ------------------------------------------------------------------- sLSTM
-def _slstm_block(x, lp, *, state=None):
-    """Sequential sLSTM over time: states (c, n, h, m) each [B, D] f32."""
+def _slstm_block(x, lp, *, state=None, s: _Split = NO_SPLIT):
+    """Sequential sLSTM over time: states (c, n, h, m) each [B, D] f32.
+    Under ``s.s`` the pre-activations are this process's columns of the
+    four gates laid end to end, gathered once, so the time loop runs on
+    every channel on every process; its output meets ``w_out``'s rows on
+    this process's part, a partial sum that the residual's hint
+    reduces."""
     B, S, D = x.shape
     H = lp["r"].shape[0]                        # r [H, hd, 4*hd]
     hd = D // H
     xin = rms_norm(x, lp["ln"])
-    pre = (xin @ lp["w"] + lp["b"]).float()     # [B,S,4D]
+    xs = copy_to_group(xin, s.group) if s.s else xin
+    pre = xs @ lp["w"] + lp["b"]                # [B,S,4D]
+    if s.s:
+        pre = gather_from_group(
+            shard_hint(pre, ("batch", None, "mlp"), (B, S, 4 * D)), s.group, 2)
+    pre = pre.float()
     if state is None:
         state = (torch.zeros((B, D), dtype=F32, device=x.device),
                  torch.full((B, D), 1e-6, dtype=F32, device=x.device),
@@ -183,11 +302,14 @@ def _slstm_block(x, lp, *, state=None):
         m = m_new
         hs.append(h)
     y = torch.stack(hs, dim=1).to(x.dtype)      # [B,S,D]
-    return x + y @ lp["w_out"], (c, n, h, m)
+    if s.s:
+        y = split_to_group(y, s.group, 2)
+    return x + shard_hint(y @ lp["w_out"], ("batch", None, None), (B, S, D),
+                          partial=s.s), (c, n, h, m)
 
 
 # ------------------------------------------------------------------- train
-def forward_hidden(params, cfg: ModelConfig, x):
+def forward_hidden(params, cfg: ModelConfig, x, *, s: _Split = NO_SPLIT):
     """All (mLSTM, sLSTM) pairs, x [B, S, D] -> final-normed hidden.  Under
     autograd with ``cfg.remat`` each pair is checkpointed, as the
     reference's ``jax.checkpoint`` over its scanned pairs."""
@@ -203,8 +325,8 @@ def forward_hidden(params, cfg: ModelConfig, x):
 
     def pair(x, i):
         with use_mesh_context(ctx):
-            x, _ = _mlstm_block(x, m_layers[i])
-            x, _ = _slstm_block(x, s_layers[i])
+            x, _ = _mlstm_block(x, m_layers[i], s=s)
+            x, _ = _slstm_block(x, s_layers[i], s=s)
             return x
 
     remat = cfg.remat and torch.is_grad_enabled()
@@ -217,17 +339,18 @@ def forward_hidden(params, cfg: ModelConfig, x):
 def loss_fn(params, cfg: ModelConfig, batch):
     """Mean next-token cross-entropy over the masked positions through the
     bf16 copy of the (tied) table, as the reference (which does not scale
-    the embedding in this family); metrics ``{}``.  The gather is
-    ``index_select``, whose backward on a card is deterministic under
-    ``torch.use_deterministic_algorithms``."""
+    the embedding in this family; vocab-parallel where the vocab is split);
+    metrics ``{}``.  The gather is ``index_select``, whose backward on a
+    card is deterministic under ``torch.use_deterministic_algorithms``."""
+    s = _split(cfg)
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = torch.index_select(params["embed"], 0,
-                           tokens.reshape(-1).long()).reshape(B, S, -1)
-    hidden = forward_hidden(params, cfg, x)
+    x = T._lookup(params, cfg, tokens, s=s)
+    hidden = forward_hidden(params, cfg, x, s=s)
     total, count = chunked_softmax_xent(
-        hidden, params["embed"].to(torch.bfloat16).t(), batch["targets"],
-        batch["mask"], chunk=cfg.vocab_chunk or min(512, S))
+        copy_to_group(hidden, s.group) if s.vocab else hidden,
+        params["embed"].to(torch.bfloat16).t(), batch["targets"],
+        batch["mask"], chunk=cfg.vocab_chunk or min(512, tokens.shape[1]),
+        vocab=split_of(cfg.vocab) if s.vocab else None)
     return total / torch.clamp(count, min=1.0), {}
 
 
@@ -249,6 +372,8 @@ def cache_specs(cfg: ModelConfig, B: int, Smax: int) -> dict[str, BatchSpec]:
 
 
 def cache_axes(cfg: ModelConfig):
+    """The state is whole on the model axis under every rule table that
+    keeps the heads whole (xlstm's own)."""
     return {"m_state": ("layers", "batch", "heads", None, None),
             "m_norm": ("layers", "batch", "heads", None),
             "s_c": ("layers", "batch", "embed"),
@@ -260,24 +385,31 @@ def cache_axes(cfg: ModelConfig):
 
 def _run(params, cfg: ModelConfig, tokens, cache, decode: bool):
     """Every layer over ``tokens`` [B, S] from ``cache`` (None: the zero
-    state); returns (last-token logits [B, V] f32, the new state)."""
+    state); returns (last-token logits [B, V] f32, the new state).  Under
+    the model axis (``_split``) the blocks and the vocab split as in the
+    train step, the state stays whole on every process (the sharded decode
+    step refuses a split of it: ``train/step.py::decode_splits``) and the
+    logits are gathered over the vocab."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    s = _split(cfg)
+    x = T._lookup(params, cfg, tokens, s=s)
     new = {k: [] for k in ("m_state", "m_norm", "s_c", "s_n", "s_h", "s_m")}
     for i, (mp, sp) in enumerate(zip(unstack_layers(params, "m"),
                                      unstack_layers(params, "s"))):
         mstate = ((cache["m_state"][i], cache["m_norm"][i]) if cache
                   else (None, None))
         x, (S_st, n_st) = _mlstm_block(x, mp, state=mstate[0],
-                                       norm=mstate[1], decode=decode)
+                                       norm=mstate[1], decode=decode, s=s)
         sstate = ((cache["s_c"][i], cache["s_n"][i], cache["s_h"][i],
                    cache["s_m"][i]) if cache else None)
-        x, (c, n, h, m) = _slstm_block(x, sp, state=sstate)
+        x, (c, n, h, m) = _slstm_block(x, sp, state=sstate, s=s)
         for key, t in zip(new, (S_st, n_st, c, n, h, m)):
             new[key].append(t)
     hidden = rms_norm(x, params["final_norm"])
     # f32 unembedding with no bf16 round trip of the table
     logits = hidden[:, -1].float() @ params["embed"].float().t()
+    if s.vocab:
+        logits = gather_from_group(logits, s.group, 1)
     new_cache = {k: torch.stack(v) for k, v in new.items()}
     new_cache["length"] = (cache["length"] + S if cache else torch.tensor(
         S, dtype=torch.int32, device=tokens.device))
@@ -308,4 +440,5 @@ def build(cfg: ModelConfig) -> TorchModelApi:
         cache_axes=functools.partial(cache_axes, cfg),
         loss=lambda params, batch: loss_fn(params, cfg, batch),
         input_specs=functools.partial(token_batch_specs, cfg),
+        split_params=functools.partial(split_params, cfg),
     )

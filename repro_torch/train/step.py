@@ -171,13 +171,19 @@ def _gather(name: str, p, mesh, local: frozenset[str]) -> torch.Tensor:
     """What the forward on this process takes of DTensor parameter ``p``:
     its part on the model axis, gathered over the other axes, for a
     parameter in ``local``; else the whole array (a split over ``model``
-    gathered as ``"parameter"`` bytes of the model group)."""
-    sizes = list(mesh_shape(mesh).values())
+    gathered as ``"parameter"`` bytes of the model group).  The other
+    axes' gathers go through ``collectives.gather_along``, minor mesh axis
+    first, as DTensor's ``redistribute`` would place them: its functional
+    all-gather kills a process whose gloo group holds a card's tensors
+    (a (4, 2) mesh sharing one card), where ``gather_along`` works."""
+    names, sizes = list(mesh_shape(mesh)), list(mesh_shape(mesh).values())
     keep = _model_only(mesh, p.placements)
-    if all(a == b or n == 1 for a, b, n in zip(p.placements, keep, sizes)):
-        t = p.to_local()
-    else:
-        t = p.redistribute(placements=keep).to_local()
+    t = p.to_local()
+    for i in reversed(range(len(names))):
+        pl = p.placements[i]
+        if names[i] != EP_AXIS and pl.is_shard() and sizes[i] > 1:
+            t = gather_along(t, mesh.get_group(names[i]), pl.dim,
+                             kind="parameter")
     if name in local:
         return t
     for i, pl in enumerate(keep):

@@ -44,11 +44,12 @@ FAMILIES = ("smollm_135m", "granite_moe_3b_a800m", "recurrentgemma_9b",
 MESHES = ((2, 2), (1, 4), (4, 1))
 #: the families whose decode computes on this process's heads, MLP part
 #: (or experts) and vocab rows where the model axis splits: the
-#: transformer family, recurrentgemma (its recurrent states' channels too)
-#: and whisper (the cross K/V's kv heads too)
+#: transformer family, recurrentgemma (its recurrent states' channels
+#: too), whisper (the cross K/V's kv heads too) and xLSTM (its blocks'
+#: inner width and gate columns; the state whole on every process)
 LOCAL_ARCHS = ("smollm_135m", "qwen3_1_7b", "gemma2_2b", "qwen3_4b",
                "qwen2_vl_7b", "granite_moe_3b_a800m", "kimi_k2_1t_a32b",
-               "recurrentgemma_9b", "whisper_base")
+               "recurrentgemma_9b", "whisper_base", "xlstm_350m")
 LOCAL_MESHES = ((2, 2), (1, 4))
 # batch, prompt and decode steps: the cache of P + G = 12 positions splits
 # over a model axis of 2 and of 4; recurrentgemma's ring of 8 slots wraps

@@ -1,10 +1,11 @@
 """What tests/test_torch_tp_families.py runs on every process of a
 4-process mesh (``repro_torch.launch.spawn.run_processes``): the
-recurrentgemma and whisper families' sharded train and prefill steps with
-their compute split over the model axis; and what ``chip_smoke.py``'s
-``tp_train`` phase and the card tests run on each process of a mesh that
-shares one card for these two families (``card_tp_families``, driven
-by ``family_legs``).  Imports torch and the port only.
+recurrentgemma, whisper and xLSTM families' sharded train and prefill
+steps with their compute split over the model axis; and what
+``chip_smoke.py``'s ``tp_train`` phase and the card tests run on each
+process of a mesh that shares one card for these families
+(``card_tp_families``, driven by ``family_legs``).  Imports torch and the
+port only.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from repro_torch.distrib import collectives
 from repro_torch.distrib.rules import local_box
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.launch.mesh import make_debug_mesh
-from repro_torch.models import rglru, whisper
+from repro_torch.models import rglru, whisper, xlstm
 from repro_torch.models.api import build_model, make_token_batch
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.optim import AdamW
@@ -32,14 +33,17 @@ from repro_torch.train.step import (init_train_state, make_prefill_step,
 from helpers.torch_tp_workers import (BATCH, CACHE, DTYPES, MESHES, PB, STEPS,
                                       P, _model_bytes, _rows, _sched, rules)
 
-ARCHS = ("recurrentgemma_9b", "whisper_base")
+ARCHS = ("recurrentgemma_9b", "whisper_base", "xlstm_350m")
 SEQ = 32
 #: the planted faults: the RG-LRU gates' partial products never summed
-#: (each process slices its channels of its own partial), and whisper's
-#: copy-in boundaries dropped (the split work's gradients of the whole
-#: values it reads, the encoder states among them, never summed)
+#: (each process slices its channels of its own partial); whisper's and
+#: xLSTM's copy-in boundaries dropped (the split work's gradients of the
+#: whole values it reads, the encoder states and the blocks' normed inputs
+#: among them, never summed)
 FAULTS = {"recurrentgemma_9b": "gates_unsummed",
-          "whisper_base": "no_copy_in"}
+          "whisper_base": "no_copy_in", "xlstm_350m": "no_copy_in"}
+#: the module each planted fault drops its copy-in boundaries from
+_COPY_IN = {"whisper_base": whisper, "xlstm_350m": xlstm}
 FAULT_MESH, FAULT_DTYPE = (2, 2), "float32"
 
 #: the parameters each family takes as this process's part on a model
@@ -55,7 +59,22 @@ ALIGNED = {
         {f"{p}/{k}" for p in ("enc", "dec")
          for k in ("wq", "wk", "wv", "wo") + _FFN}
         | {f"dec/{k}" for k in ("xq", "xk", "xv", "xo")}),
+    "xlstm_350m": frozenset(
+        {f"m/{k}" for k in ("w_up", "w_gate", "wq", "wk", "wv", "w_if",
+                            "w_down")}
+        | {f"s/{k}" for k in ("w", "b", "w_out")} | {"embed"}),
 }
+
+
+def noise_cols(cfg) -> dict[str, int]:
+    """The state arrays whose first columns are rounding noise, by the
+    count of those columns (``card_errors``' ``noise_cols``): xLSTM's
+    sLSTM gate bias and its slots, whose input gate (the first D of its
+    4 D columns) gets a gradient of about 0 (ROADMAP.md, Reference
+    caveats)."""
+    if cfg.recurrent != "xlstm":
+        return {}
+    return {f"{k}/s/b": cfg.d_model for k in ("params", "opt/m", "opt/v")}
 
 
 def config(arch: str, dtype: str, **kw):
@@ -108,8 +127,9 @@ class _ScanWidths:
         scan_ops.lru_scan = self._scan
 
 
-def _faulty(fault: str | None):
-    """A context that plants ``fault`` in the model code (or none)."""
+def _faulty(fault: str | None, arch: str | None = None):
+    """A context that plants ``fault`` in ``arch``'s model code (or
+    none)."""
     import contextlib
 
     from repro_torch.distrib.tensor_parallel import split_to_group
@@ -120,15 +140,15 @@ def _faulty(fault: str | None):
             saved = rglru.sum_scatter_to_group
             rglru.sum_scatter_to_group = split_to_group
         elif fault == "no_copy_in":
-            saved = whisper.copy_to_group
-            whisper.copy_to_group = lambda x, group: x
+            saved = _COPY_IN[arch].copy_to_group
+            _COPY_IN[arch].copy_to_group = lambda x, group: x
         try:
             yield
         finally:
             if fault == "gates_unsummed":
                 rglru.sum_scatter_to_group = saved
             elif fault == "no_copy_in":
-                whisper.copy_to_group = saved
+                _COPY_IN[arch].copy_to_group = saved
     return planted()
 
 
@@ -146,7 +166,7 @@ def train_steps(mesh, arch: str, cfg, init, steps: int, S: int = SEQ,
     data = SyntheticLM(cfg.vocab, S, BATCH, seed=0)
     metrics = []
     collectives.traffic.reset()
-    with _ScanWidths() as scans, _faulty(fault):
+    with _ScanWidths() as scans, _faulty(fault, arch):
         for i in range(steps):
             batch = with_frames(cfg, data.batch(i), i)
             state, m = step(state, _rows(batch, mesh, step.batch_shardings))
@@ -200,7 +220,8 @@ def card_config(arch: str, layers: int, dtype: str | None = None):
     """The family at full width on the card, remat, in ``dtype`` (default
     the config's, bf16): recurrentgemma-9b at ``layers`` layers (3: one
     (lru, lru, local) group), whisper-base at ``layers`` encoder and
-    decoder layers."""
+    decoder layers, xlstm-350m at ``layers`` (2: one mLSTM/sLSTM
+    pair)."""
     cfg = dataclasses.replace(get_config(arch), num_layers=layers, remat=True)
     if cfg.enc_dec:
         cfg = dataclasses.replace(cfg, encoder_layers=layers)
@@ -598,7 +619,8 @@ def family_legs(shape, legs: dict, steps: int, seed: int, lr: float, G: int,
             t0 = time.perf_counter()
             kept = load_kept(kept_dir, n, f"{arch}_rank")
             ratios = card_errors(per[0]["metrics"], kept, one,
-                                 device="cuda", rtol=CARD_RTOL_F32)
+                                 device="cuda", rtol=CARD_RTOL_F32,
+                                 noise_cols=noise_cols(cfg))
             compare_s = time.perf_counter() - t0
             worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:5]
             one_losses, one_ms = [h["loss"] for h in one[2]], one[3]

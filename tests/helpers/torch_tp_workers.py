@@ -397,7 +397,8 @@ def _ratio(got, want, rtol: float) -> float:
 
 def card_errors(metrics: list, kept: list, one, device: str = "cpu",
                 min_change_ulps: float = 0.0,
-                rtol: dict = CARD_RTOL) -> dict[str, float]:
+                rtol: dict = CARD_RTOL,
+                noise_cols: dict | None = None) -> dict[str, float]:
     """Each value's error over its tolerance in ``rtol`` (at most 1 within
     it; ``CARD_RTOL``, bf16's, by default): the TP run's ``metrics`` per
     step and every process's ``kept`` shards (``load_kept``) against the
@@ -410,8 +411,16 @@ def card_errors(metrics: list, kept: list, one, device: str = "cpu",
     parameter's dtype at the element's value: where a step moves a stored
     bf16 value by about one spacing, the two runs' last-bit differences
     decide which way it rounds, and the update's 2-norm measures those
-    roundings rather than the step."""
+    roundings rather than the step.
+
+    ``noise_cols`` ({state name: n}) holds an array, a parameter's update
+    or a slot, over its columns (last dim) from ``n`` on: the first ``n``
+    get a gradient of about 0, whose rounding noise AdamW turns into steps
+    of either sign and which sets a process's own scale where it holds
+    those columns alone (xLSTM's ``s/b``: ROADMAP.md, Reference caveats);
+    a process that holds none of the others is skipped for it."""
     init, final, history, _ = one
+    noise_cols = noise_cols or {}
     out = {}
     for i, (g, w) in enumerate(zip(metrics, history)):
         for k in w:
@@ -424,6 +433,13 @@ def card_errors(metrics: list, kept: list, one, device: str = "cpu",
                 continue
             t = t.to(device)
             want = final[k][r["boxes"][k]].to(device)
+            past = None
+            if k in noise_cols:
+                cols = r["boxes"][k][-1]
+                past = torch.arange(cols.start, cols.stop,
+                                    device=device) >= noise_cols[k]
+                if not bool(past.any()):
+                    continue
             if k.startswith("params/"):
                 start = init[k][r["boxes"][k]].to(device).double()
                 du, dw = t.double() - start, want.double() - start
@@ -433,8 +449,12 @@ def card_errors(metrics: list, kept: list, one, device: str = "cpu",
                             torch.finfo(want.dtype).tiny))))
                     moved = dw.abs() >= min_change_ulps * spacing
                     du, dw = du[moved], dw[moved]
+                if past is not None:
+                    du, dw = du[..., past], dw[..., past]
                 e = float(torch.linalg.norm(du - dw)
                           / (_rtol(k, rtol) * torch.linalg.norm(dw)))
+            elif past is not None:
+                e = _ratio(t[..., past], want[..., past], _rtol(k, rtol))
             else:
                 e = _ratio(t, want, _rtol(k, rtol))
             out[k] = max(out.get(k, 0.0), e)

@@ -983,12 +983,15 @@ def test_tp_families_on_processes_that_share_the_card(cuda, tmp_path,
                                                       monkeypatch):
     """recurrentgemma-9b at full width and 3 layers (each process's RG-LRU
     block on 2,048 of the 4,096 channels, its scan on the card at that
-    width), B 1, S 128, and whisper-base at full width and 1 + 1 layers,
-    B 2, S 64, on a (1, 2) mesh of 2 processes that share the card (gloo,
-    one spawn for both), their compute split over the model axis
-    (``chip_smoke.py``'s ``tp_train`` legs at a smaller size): a bf16
-    prefill and 4 decode steps on local heads and channels within 0.05 of
-    one process's logits and the same greedy tokens; 2 f32 TP steps within
+    width), B 1, S 128, whisper-base at full width and 1 + 1 layers, B 2,
+    S 64, and xlstm-350m at full width and 2 layers (each process with
+    1,024 of the mLSTM's 2,048 inner columns and 2,048 of the sLSTM's
+    4,096 gate columns), B 1, S 64, on a (1, 2) mesh of 2 processes that
+    share the card (gloo, one spawn for the three), their compute split
+    over the model axis (``chip_smoke.py``'s ``tp_train`` legs at a
+    smaller size): a bf16 prefill and 4 decode steps on local heads,
+    channels and columns within 0.05 (xlstm: 0.08) of one process's logits
+    and the same greedy tokens; 2 f32 TP steps within
     tests/test_torch_mesh_train.py's f32 tolerances of the one-process card
     steps and again bit-equal; the scan launched by each process (a
     prefill once per RG-LRU layer, a step three times); no parameter bytes
@@ -1001,14 +1004,16 @@ def test_tp_families_on_processes_that_share_the_card(cuda, tmp_path,
     from helpers.torch_tp_family_workers import family_legs
 
     legs = {"recurrentgemma_9b": {"layers": 3, "B": 1, "S": 128, "P": 128},
-            "whisper_base": {"layers": 1, "B": 2, "S": 64, "P": 16}}
+            "whisper_base": {"layers": 1, "B": 2, "S": 64, "P": 16},
+            "xlstm_350m": {"layers": 2, "B": 1, "S": 64, "P": 64}}
     m, steps = 2, 2
     monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     was = torch.are_deterministic_algorithms_enabled()
     try:
         records, launches, failed = family_legs(
             (1, m), legs, steps, 0, 3e-3, 4, str(tmp_path),
-            {a: 0.05 for a in legs}, timeout=300)
+            {a: 0.08 if a == "xlstm_350m" else 0.05 for a in legs},
+            timeout=300)
     finally:
         torch.use_deterministic_algorithms(was)
     assert failed == [], failed
@@ -1020,3 +1025,8 @@ def test_tp_families_on_processes_that_share_the_card(cuda, tmp_path,
     rg = records[0]
     assert rg["local_shapes"]["params/lru/w_a"] == [2, 2048, 4096]
     assert rg["cache_local_shapes"]["h"] == [2, 1, 2048]
+    xl = records[2]
+    assert xl["local_shapes"]["params/m/w_up"] == [1, 1024, 1024]
+    assert xl["local_shapes"]["params/s/w"] == [1, 1024, 2048]
+    assert xl["local_shapes"]["params/s/w_out"] == [1, 512, 1024]
+    assert xl["cache_local_shapes"]["m_state"] == [1, 1, 4, 512, 512]

@@ -187,21 +187,22 @@ _WHISPER_GATHERED_AT_16 = ([f"{p}/{k}" for p in ("enc", "dec")
     ("whisper_base", "train_4k", "split over model"),
     ("whisper_base", "prefill_32k", "split over model"),
     ("whisper_base", "decode_32k", "split over model"),
-    ("xlstm_350m", "train_4k", "repeated over model"),
+    ("xlstm_350m", "train_4k", "split over model"),
 ])
 def test_cells_split_their_compute_over_model(arch, name, compute):
     """A cell's step as ``run_cell`` counts it on the production (16, 16)
     mesh (the cell's config, rule table and knobs), its depth cut (one
     (lru, lru, local) group, 1 + 1 whisper layers, 2 xlstm layers) and its
     sequence to 64 (the split follows the rule table and the widths):
-    recurrentgemma's prefill and decode and whisper's three cells split
-    their compute over the model axis.  recurrentgemma's parameters are
-    all this process's part there; whisper's 8 heads stay whole on a
-    16-wide axis, so the step gathers the q, k and v projections (stored
-    split by their 512 columns) and splits ``wo``, ``xo`` and the MLP.
-    recurrentgemma's train cell puts its batch on the model axis
-    (``configs/perf.py``: ``batch`` over data and model), and xlstm's
-    train cell repeats its compute."""
+    recurrentgemma's prefill and decode, whisper's three cells and xlstm's
+    train cell split their compute over the model axis.  recurrentgemma's
+    and xlstm's parameters are all this process's part there (xlstm's
+    inner width of 2,048, gate columns of 4,096 and ``w_out``'s 1,024
+    rows divide 16); whisper's 8 heads stay whole on a 16-wide axis, so
+    the step gathers the q, k and v projections (stored split by their
+    512 columns) and splits ``wo``, ``xo`` and the MLP.  recurrentgemma's
+    train cell puts its batch on the model axis (``configs/perf.py``:
+    ``batch`` over data and model)."""
     shape = dryrun.SHAPES[name]
     cfg, knobs = dryrun._cfg_for(arch, shape, "single")
     layers = {"recurrentgemma_9b": 3, "whisper_base": 1, "xlstm_350m": 2}

@@ -31,7 +31,7 @@ def test_elastic_example_four_to_two(tmp_path):
         out = elastic_restart.main(["--save-mesh", "2", "2", "--load-mesh",
                                     "2", "1", "--ckpt-dir",
                                     str(tmp_path / "ck"), "--timeout",
-                                    str(TIMEOUT)])
+                                    str(TIMEOUT), "--device", "cpu"])
     text = buf.getvalue()
     assert text.strip().endswith(
         "elastic N-to-M restart after an injected crash OK"), text

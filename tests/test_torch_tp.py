@@ -256,6 +256,14 @@ _ACTIVATION = {"wq": ("heads", "num_heads"), "wk": ("kv_heads", "num_kv_heads"),
                "xo": ("heads", "num_heads"),
                **{k: ("mlp", "lru_width") for k in (
                    "w_y", "w_x", "conv", "lam", "w_a", "w_i", "w_out")}}
+#: xLSTM's split parameters by name (their base names recur with other
+#: activations): the mLSTM's inner width 2 D, the sLSTM's gate columns
+#: 4 D and ``w_out``'s rows D, each of which a model axis that divides
+#: d_model divides
+_XLSTM_ACTIVATION = {
+    **{f"m/{k}": ("mlp", "d_model") for k in (
+        "w_up", "w_gate", "wq", "wk", "wv", "w_if", "w_down")},
+    **{f"s/{k}": ("mlp", "d_model") for k in ("w", "b", "w_out")}}
 
 
 def _expected(arch: str, shape) -> tuple[set[str], int]:
@@ -274,7 +282,9 @@ def _expected(arch: str, shape) -> tuple[set[str], int]:
         if m == 1 or not on_model or "experts" in spec.axes:
             continue
         base = name.rsplit("/", 1)[-1]
-        axis, size = _ACTIVATION.get(base, (None, None))
+        axis, size = (_XLSTM_ACTIVATION[name] if cfg.recurrent == "xlstm"
+                      and name in _XLSTM_ACTIVATION
+                      else _ACTIVATION.get(base, (None, None)))
         n = getattr(cfg, size) * (cfg.head_dim_ if base in ("wo", "xo")
                                   else 1) if size else 0
         if (axis is not None and spec.axes[on_model[0]] == axis

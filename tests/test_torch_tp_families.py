@@ -1,11 +1,13 @@
-"""Tensor-parallel compute over the model axis for the recurrentgemma and
-whisper families: their sharded train and prefill steps on 4
+"""Tensor-parallel compute over the model axis for the recurrentgemma,
+whisper and xLSTM families: their sharded train and prefill steps on 4
 ``torch.distributed`` processes (gloo on the CPU) against the JAX
 package's GSPMD steps on 4 host devices.
 
 * recurrentgemma-9b (RG-LRU blocks on this process's channels, the MQA
-  attention on its query heads) and whisper-base (encoder, decoder and
-  cross-attention on its heads and kv heads), smoke configs, on (2, 2)
+  attention on its query heads), whisper-base (encoder, decoder and
+  cross-attention on its heads and kv heads) and xlstm-350m (the mLSTM's
+  inner width and the sLSTM's gate columns on this process's part, each
+  cell whole on every process), smoke configs, on (2, 2)
   and (1, 4): 3 sharded steps against the reference's sharded
   ``make_train_step`` on an Auto-axis (2, 2) ``jax.make_mesh`` (values
   differ between meshes by the rounding of the sharded sums only), within
@@ -18,13 +20,15 @@ package's GSPMD steps on 4 host devices.
   over the model axis;
 * each process's forward scans run at width ``W / n``;
 * a planted fault (the gates' partial products never summed; whisper's
-  copy-in boundaries dropped) fails the parity check;
+  and xLSTM's copy-in boundaries dropped) fails the parity check;
 * on a (1, 1) mesh the sharded step is the one-device step bit for bit.
 
 The reference runs in a subprocess per arch with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` (ROADMAP.md,
-Reference caveats) and writes ``.npz`` files; the port's 4 processes run
-every case in one spawn.
+Reference caveats; xLSTM's with ``--xla_allow_excess_precision=false``
+too, as its bf16 steps round at every op the program names only so) and
+writes ``.npz`` files; the port's 4 processes run every case in one
+spawn.
 """
 
 from __future__ import annotations
@@ -50,6 +54,13 @@ TIMEOUT = 300
 PG_TIMEOUT = 60
 #: the reference's mesh every port run is held to
 REF_MESH = (2, 2)
+#: the XLA flags of each arch's reference subprocess beside the host
+#: device count: XLA's excess precision keeps the reference's bf16 xLSTM
+#: closer to f32 than its program text (ROADMAP.md, Reference caveats)
+_XLA_EXTRA = {"xlstm_350m": " --xla_allow_excess_precision=false"}
+#: the archs whose reference also runs on one device, (1, 1): the spread
+#: between its own meshes bounds the arrays ``SPREAD_BOUND`` names
+SELF_SPREAD = {"xlstm_350m": (1, 1)}
 
 _JAX = r"""
 import dataclasses, functools, json, sys
@@ -140,13 +151,16 @@ def runs(tmp_path_factory):
             _dump(ref / f"init_{arch}_{dtype}.npz", inits[(arch, dtype)])
         params[arch] = W.initial_params(arch)
         _dump(ref / f"params_{arch}.npz", params[arch])
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO / "src"),
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO / "src"))
+    cells = [(arch, REF_MESH) for arch in W.ARCHS] + list(SELF_SPREAD.items())
     procs = [subprocess.Popen([sys.executable, "-c", _JAX, str(ref), arch,
-                               *map(str, REF_MESH)],
-                              env=env, cwd=REPO, stdout=subprocess.PIPE,
+                               *map(str, shape)],
+                              env=dict(env, XLA_FLAGS=(
+                                  "--xla_force_host_platform_device_count=4"
+                                  + _XLA_EXTRA.get(arch, ""))),
+                              cwd=REPO, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for arch in W.ARCHS]
+             for arch, shape in cells]
     try:
         four = run_processes(W.family_cases, 4, (inits, params),
                              timeout=TIMEOUT, pg_timeout=PG_TIMEOUT,
@@ -184,11 +198,27 @@ def _close_update_moved(got, want, init, rtol, what=""):
                   what)
 
 
+#: xLSTM's sLSTM gate bias (ROADMAP.md, Reference caveats).  The gradient
+#: of its input gate's columns (the first D of 4D) is about 0: below
+#: AdamW's eps in f32, rounding noise in bf16, which AdamW turns into
+#: updates of either sign; the reference's own (1, 1) and (2, 2) steps
+#: differ by 1.76e-3 (f32) and 53 % (bf16) of the update with them and by
+#: 3.4e-7 and 1.2 % without.  Its update is held over the other columns.
+INPUT_GATE_NOISE = {"params/s/b"}
+#: bf16 slots that are a sum over the batch's positions of bf16 cotangents
+#: that cancel (the z gate's bias): the reference's own (1, 1) and (2, 2)
+#: steps differ by 7.8 % (v) and 3.9 % (m) of their scale, past RTOL's
+#: 3e-2, and its bf16 from its f32 by 3.6 %.  Each is held within RTOL or
+#: within that spread of the reference, whichever is larger.
+SPREAD_BOUND = {"opt/m/s/b", "opt/v/s/b"}
+
+
 def _check_steps(ref: Path, arch: str, dtype: str, init: dict,
                  got: dict) -> None:
     """``got``'s metrics per step, optimizer slots and parameter updates
     within ``_rtol`` of their scale against the reference's sharded steps
-    on ``REF_MESH`` (raises AssertionError otherwise)."""
+    on ``REF_MESH`` (raises AssertionError otherwise); xLSTM's gate bias
+    as ``INPUT_GATE_NOISE`` and ``SPREAD_BOUND`` say."""
     tag = f"{arch}_{_tag(REF_MESH)}"
     want_m = json.loads((ref / f"metrics_{tag}_{dtype}.json").read_text())
     want = _load_npz(ref / f"final_{tag}_{dtype}.npz")
@@ -207,8 +237,18 @@ def _check_steps(ref: Path, arch: str, dtype: str, init: dict,
                 and k in ROUNDING_BOUND:
             _close_update_moved(got["state"][k], v, init[k],
                                 _rtol(dtype, k), k)
+        elif k in INPUT_GATE_NOISE:
+            D = v.shape[-1] // 4
+            _close_update(got["state"][k][..., D:], v[..., D:],
+                          init[k][..., D:], _rtol(dtype, k), k)
         elif k.startswith("params/"):
             _close_update(got["state"][k], v, init[k], _rtol(dtype, k), k)
+        elif dtype == "bfloat16" and k in SPREAD_BOUND:
+            other = _load_npz(ref / f"final_{arch}_{_tag(SELF_SPREAD[arch])}"
+                                    f"_{dtype}.npz")[k]
+            spread = float((other.double() - v.double()).abs().max()
+                           / v.double().abs().max())
+            _close(got["state"][k], v, max(_rtol(dtype, k), spread), k)
         elif k != "step":
             _close(got["state"][k], v, _rtol(dtype, k), k)
 
@@ -234,9 +274,10 @@ def test_tp_family_step_matches_reference_sharded_step(runs, shape, arch,
 def test_planted_fault_fails_the_parity_check(runs, arch):
     """The same steps with a fault planted in the split (recurrentgemma:
     the gates' partial products sliced to this process's channels, never
-    summed; whisper: the copy-in boundaries dropped, so the gradients of
-    the whole values the split work reads, the encoder states among them,
-    are never summed) fall outside the tolerances the true steps meet."""
+    summed; whisper and xLSTM: the copy-in boundaries dropped, so the
+    gradients of the whole values the split work reads, the encoder states
+    and the blocks' normed inputs among them, are never summed) fall
+    outside the tolerances the true steps meet."""
     got = runs["four"][0][("fault", arch)]
     with pytest.raises(AssertionError):
         _check_steps(runs["ref"], arch, W.FAULT_DTYPE,
